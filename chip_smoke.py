@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py [--seed 0]
+
+Needs one CUDA card and ``nvcc``; exits non-zero without them, and outside a
+checkout of the repository. Phases (none catches its own failure):
+
+1. build — every ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a), in parallel;
+2. kernels — each hand-written kernel against its plain PyTorch version on
+   the card at starcoder2-3b full-width shapes (H=24, KV=2, hd=128, bs=16,
+   B=4, L=4096; flash S=4608, window 4096), plus softcap=50 and hd=256 cases.
+   Tolerances: atol 2e-5 for f32 and int8-dequantised pools, 2e-2 for bf16.
+   Times from CUDA events: kernel, plain version, and one PyTorch library
+   call computing the same function (timed only; the port never calls it);
+3. serving — full-width starcoder2-3b (bf16, seeded random weights) through
+   ``ContinuousBatcher`` (4 slots, max_len 8192, 16-token pages, bucket 16)
+   for 8 requests, paged, paged-int8 and dense. The launch and plain-call
+   counts are zeroed just before each layout and read just after: every
+   kernel of the layout must have launched, no plain version may have run,
+   and paged tokens must equal dense tokens;
+4. f32 model check — full width in f32: prefill logits of a 513-token prompt
+   and the 4 dense decode steps after it, kernel path against the plain path
+   on the card, within 2e-4 of max |logit|.
+
+TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN). The
+last lines are the kernel table (JSON), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / f32 FMA
+LOGIT_RTOL = 2e-4             # f32 kernel path vs plain path, of max |logit|
+NEG_INF = -2.3819763e38
+ARCH = "starcoder2-3b"
+PROMPT_LENS = (17, 100, 513, 1000, 2047, 4500, 31, 250)
+MAX_NEW = 24
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# --------------------------------------------------------------------------
+# timing and bounds
+
+
+def time_ms(fn, iters, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes, flops, dtype_name):
+    return 1e3 * max(n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name])
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def flash_pairs(S, window):
+    """Visible (q, k) pairs of causal self-attention with a sliding window."""
+    import numpy as np
+
+    q = np.arange(S)
+    return int(np.minimum(q + 1, window if window else S).sum())
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+
+
+def _check(name, got, ref, tol):
+    """The reference's criterion (tests/test_kernels.py: assert_allclose with
+    atol = rtol = tol): |got - ref| <= tol + tol * |ref| everywhere."""
+    diff = (got.float() - ref.float()).abs()
+    err = diff.max().item()
+    excess = (diff - tol * (1 + ref.float().abs())).max().item()
+    log(f"  {name:<46} max_abs_err={err:.3e} atol=rtol={tol:g}")
+    if not excess <= 0:
+        raise AssertionError(f"{name}: kernel vs plain exceeds atol=rtol={tol} "
+                             f"(max_abs_err {err})")
+    return err
+
+
+def kernel_phase(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_fwd, paged_decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.optim.compress import quantize_int8
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {bf16: 2e-2, f32: 2e-5}
+    rows = {}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # ---- B2 flash prefill: starcoder2 full width, one 4608-token prompt
+    B, H, KV, hd, S, W = 1, 24, 2, 128, 4608, 4096
+    log("kernel phase: flash_attention (B2)")
+    for dtype in (bf16, f32):
+        q, k, v = (randn((B, S, n, hd), dtype).transpose(1, 2) for n in (H, KV, KV))
+        o = flash_attention_fwd(q, k, v, window=W)
+        ref = attention_ref(q, k, v, window=W)
+        err = _check(f"flash {dtype} S={S} window={W}", o, ref, tol[dtype])
+        if dtype == bf16:
+            pairs = flash_pairs(S, W)
+            mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+            mask &= ~torch.ones(S, S, dtype=torch.bool, device=dev).tril(-W)
+            rows["flash_attention"] = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: flash_attention_fwd(q, k, v, window=W), 5),
+                plain_ms=time_ms(lambda: attention_ref(q, k, v, window=W), 3),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), 5),
+                bound_ms=bound_ms(nbytes(q, k, v, o), 4 * B * H * hd * pairs,
+                                  "bfloat16"),
+                shape=f"B={B} H={H} KV={KV} S={S} hd={hd} window={W} bf16")
+        del q, k, v, o, ref
+    q, k, v = (randn((1, 1024, n, hd), bf16).transpose(1, 2) for n in (H, KV, KV))
+    _check("flash bf16 S=1024 softcap=50", flash_attention_fwd(q, k, v, softcap=50.0),
+           attention_ref(q, k, v, softcap=50.0), tol[bf16])
+    q, k, v = (randn((1, 2048, n, 256), bf16).transpose(1, 2) for n in (8, 4, 4))
+    _check("flash bf16 hd=256 S=2048 softcap=50 window=1024",
+           flash_attention_fwd(q, k, v, softcap=50.0, window=1024),
+           attention_ref(q, k, v, softcap=50.0, window=1024), tol[bf16])
+    del q, k, v
+
+    # ---- B3 dense decode: 4 slots against a 4096-slot rolling cache
+    B, L = 4, 4096
+    lens = torch.tensor([L, 2071, 524, 41], device=dev)
+    bias = torch.where(torch.arange(L, device=dev)[None] < lens[:, None],
+                       0.0, NEG_INF).float()
+    log("kernel phase: decode_attention (B3)")
+    n_copies = 8  # rotate caches so each timed launch reads from HBM, not L2
+    for dtype in (bf16, f32):
+        q = randn((B, H, hd), dtype)
+        caches = [(randn((B, L, KV, hd), dtype).transpose(1, 2),
+                   randn((B, L, KV, hd), dtype).transpose(1, 2))
+                  for _ in range(n_copies if dtype == bf16 else 1)]
+        k, v = caches[0]
+        o = decode_attention_fwd(q, k, v, bias)
+        err = _check(f"decode {dtype} B={B} L={L}", o,
+                     decode_attention_ref(q, k, v, bias), tol[dtype])
+        if dtype == bf16:
+            it = iter(range(10**9))
+            mask4 = bias[:, None, None, :]
+            rows["decode_attention"] = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: decode_attention_fwd(
+                    q, *caches[next(it) % n_copies], bias), 40),
+                plain_ms=time_ms(lambda: decode_attention_ref(
+                    q, *caches[next(it) % n_copies], bias), 20),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], *caches[next(it) % n_copies], attn_mask=mask4,
+                    enable_gqa=True), 40),
+                bound_ms=bound_ms(nbytes(q, k, v, bias, o), 4 * B * H * hd * L,
+                                  "bfloat16"),
+                shape=f"B={B} H={H} KV={KV} L={L} hd={hd} bf16, per-slot bias")
+        del caches, k, v
+    q = randn((B, H, hd), bf16)
+    k, v = (randn((B, L, KV, hd), bf16).transpose(1, 2) for _ in range(2))
+    _check("decode bf16 softcap=50", decode_attention_fwd(q, k, v, bias, softcap=50.0),
+           decode_attention_ref(q, k, v, bias, softcap=50.0), tol[bf16])
+    q = randn((B, 8, 256), bf16)
+    k, v = (randn((B, L, 4, 256), bf16).transpose(1, 2) for _ in range(2))
+    _check("decode bf16 hd=256 shared bias", decode_attention_fwd(q, k, v, bias[1]),
+           decode_attention_ref(q, k, v, bias[1]), tol[bf16])
+    del q, k, v
+
+    # ---- B1 paged decode: the batcher's pool (4 slots x 512 pages + 2)
+    bs, P, n_phys = 16, L // 16, 2 + 4 * 512
+    table = (torch.randperm(4 * 512, generator=gen, device=dev)[:B * P] + 2)
+    table = table.reshape(B, P).to(torch.int32)
+    log("kernel phase: paged_decode_attention (B1)")
+
+    def pools(dtype, n):
+        return [(randn((n_phys, bs, KV, hd), dtype), randn((n_phys, bs, KV, hd), dtype))
+                for _ in range(n)]
+
+    for dtype in (bf16, f32):
+        q = randn((B, H, hd), dtype)
+        pl = pools(dtype, n_copies if dtype == bf16 else 1)
+        kp, vp = pl[0]
+        o = paged_decode_attention_fwd(q, kp, vp, table, bias)
+        err = _check(f"paged {dtype} B={B} P={P} bs={bs}", o,
+                     paged_decode_attention_ref(q, kp, vp, table, bias),
+                     tol[dtype])
+        if dtype == bf16:
+            it = iter(range(10**9))
+            gathered = B * P * bs * KV * hd * 2 * 2
+            rows["paged_decode_attention"] = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: paged_decode_attention_fwd(
+                    q, *pl[next(it) % n_copies], table, bias), 40),
+                plain_ms=time_ms(lambda: paged_decode_attention_ref(
+                    q, *pl[next(it) % n_copies], table, bias), 20),
+                library_ms=None,  # no single PyTorch call gathers through a page table
+                bound_ms=bound_ms(nbytes(q, table, bias, o) + gathered,
+                                  4 * B * H * hd * L, "bfloat16"),
+                shape=f"B={B} H={H} KV={KV} P={P} bs={bs} hd={hd} bf16 pool")
+        del pl, kp, vp
+    kf, vf = pools(f32, 1)[0]
+    qk, ks = quantize_int8(kf)
+    qv, vs = quantize_int8(vf)
+    del kf, vf
+    for dtype in (f32, bf16):
+        q = randn((B, H, hd), dtype)
+        o = paged_decode_attention_fwd(q, qk, qv, table, bias, k_scale=ks, v_scale=vs)
+        _check(f"paged int8 pool, q {dtype}", o,
+               paged_decode_attention_ref(q, qk, qv, table, bias, k_scale=ks,
+                                          v_scale=vs), tol[dtype])
+    ms8 = time_ms(lambda: paged_decode_attention_fwd(
+        q, qk, qv, table, bias, k_scale=ks, v_scale=vs), 40)
+    b8 = bound_ms(nbytes(q, table, bias, o) + B * P * bs * KV * (hd + 4) * 2,
+                  4 * B * H * hd * L, "bfloat16")
+    log(f"  paged int8 pool (bf16 q): ms={ms8:.4f} bound_ms={b8:.4f} "
+        f"(L2-warm: one pool)")
+    q = randn((B, H, hd), bf16)
+    kp, vp = pools(bf16, 1)[0]
+    _check("paged bf16 softcap=50", paged_decode_attention_fwd(
+        q, kp, vp, table, bias, softcap=50.0), paged_decode_attention_ref(
+        q, kp, vp, table, bias, softcap=50.0), tol[bf16])
+    q = randn((B, 8, 256), bf16)
+    kp, vp = (randn((n_phys, bs, 4, 256), bf16) for _ in range(2))
+    _check("paged bf16 hd=256", paged_decode_attention_fwd(q, kp, vp, table, bias),
+           paged_decode_attention_ref(q, kp, vp, table, bias), tol[bf16])
+    del q, kp, vp, qk, qv
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 3: full-width serving through ContinuousBatcher
+
+
+def serving_phase(dev, seed):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNEL_NAMES, LAUNCHES, PLAIN_CALLS, reset_counts
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.runtime.batching import ContinuousBatcher, GenRequest
+
+    class TimedModel(DecoderLM):
+        """Synchronised wall-clock per prefill (by bucket) and decode step."""
+
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.prefill_ms, self.decode_ms = {}, []
+
+        def _timed(self, fn, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            return out, 1e3 * (time.perf_counter() - t0)
+
+        def prefill(self, params, **kw):
+            out, ms = self._timed(super().prefill, params, **kw)
+            self.prefill_ms.setdefault(kw["tokens"].shape[1], []).append(ms)
+            return out
+
+        def decode_step(self, params, cache, **kw):
+            out, ms = self._timed(super().decode_step, params, cache, **kw)
+            self.decode_ms.append(ms)
+            return out
+
+        def decode_step_paged(self, params, pools, **kw):
+            out, ms = self._timed(super().decode_step_paged, params, pools, **kw)
+            self.decode_ms.append(ms)
+            return out
+
+    cfg = get_config(ARCH)
+    log(f"serving phase: {ARCH} full width: layers={cfg.num_layers} "
+        f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+        f"hd={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"window={cfg.window_size} dtype={cfg.dtype}")
+    t0 = time.perf_counter()
+    probe = TimedModel(cfg)
+    params = probe.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  seeded init: {n_params} params, {1e3 * (time.perf_counter() - t0):.0f} ms")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
+
+    layouts = {"paged": dict(kv_layout="paged"),
+               "paged-int8": dict(kv_layout="paged", kv_quant="int8"),
+               "dense": dict(kv_layout="dense")}
+    needed = {"paged": ("flash_attention", "paged_decode_attention"),
+              "paged-int8": ("flash_attention", "paged_decode_attention"),
+              "dense": ("flash_attention", "decode_attention")}
+    launches = {name: 0 for name in KERNEL_NAMES}
+    tokens, summary = {}, {}
+    for name, kw in layouts.items():
+        model = TimedModel(cfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        b = ContinuousBatcher(model, params, max_slots=4, max_len=8192,
+                              kv_block_size=16, prompt_bucket=16, device=dev, **kw)
+        reqs = [GenRequest(i, p, MAX_NEW) for i, p in enumerate(prompts)]
+        for r in reqs:
+            b.submit(r)
+        with torch.inference_mode():
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+        if not all(r.finish_step is not None and len(r.tokens) == MAX_NEW for r in reqs):
+            raise AssertionError(f"{name}: not every request finished")
+        missing = [k for k in needed[name] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched: {missing}")
+        if sum(plain.values()):
+            raise AssertionError(f"{name}: plain versions ran on the card: {plain}")
+        for k, n in counts.items():
+            launches[k] += n
+        tokens[name] = [r.tokens for r in reqs]
+        n_tok = sum(len(r.tokens) for r in reqs)
+        summary[name] = dict(
+            requests=len(reqs), tokens=n_tok, steps=b.step_count,
+            wall_s=wall, tokens_per_s=n_tok / wall,
+            prefill_ms_by_bucket={k: round(sum(v) / len(v), 3)
+                                  for k, v in sorted(model.prefill_ms.items())},
+            decode_ms_per_step=sum(model.decode_ms) / len(model.decode_ms),
+            decode_steps=len(model.decode_ms),
+            kv_cache_bytes=b.kv_cache_bytes(),
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            launches=counts, plain_calls=sum(plain.values()))
+        log(f"  {name}: {json.dumps(summary[name])}")
+        del b, model
+        torch.cuda.empty_cache()
+    if tokens["paged"] != tokens["dense"]:
+        raise AssertionError("paged tokens differ from dense tokens")
+    agree = np.mean([a == b for ra, rb in zip(tokens["paged-int8"], tokens["dense"])
+                     for a, b in zip(ra, rb)])
+    log(f"  paged tokens == dense tokens: True; paged-int8 agrees with dense on "
+        f"{agree:.4f} of tokens")
+    del params
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# --------------------------------------------------------------------------
+# phase 4: full-width f32 logits, kernel path vs plain path
+
+
+def f32_phase(dev, seed):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.runtime.batching import ContinuousBatcher
+
+    cfg = get_config(ARCH).replace(dtype="float32", param_dtype="float32")
+    kern, plain = DecoderLM(cfg), DecoderLM(cfg, plain=True)
+    params = kern.init(torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
+    rng = np.random.default_rng(seed + 1)
+    plen, bucket, max_len = 513, 1024, 8192
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, :plen] = rng.integers(1, cfg.vocab_size, plen)
+    toks = torch.as_tensor(toks, device=dev)
+    log(f"f32 phase: {ARCH} full width in float32, prompt {plen} in bucket {bucket}")
+    worst = 0.0
+    with torch.inference_mode():
+        lk, ck = kern.prefill(params, tokens=toks, max_len=max_len, true_len=plen)
+        lp, cp = plain.prefill(params, tokens=toks, max_len=max_len, true_len=plen)
+        for step in range(5):
+            scale = lp.abs().max().item()
+            rel = (lk - lp).abs().max().item() / scale
+            worst = max(worst, rel)
+            log(f"  {'prefill' if step == 0 else f'decode {step}'}: max|dlogit|/max|logit|"
+                f"={rel:.3e} (max|logit|={scale:.3f})")
+            if not rel <= LOGIT_RTOL:
+                raise AssertionError(f"f32 kernel vs plain logits: {rel} > {LOGIT_RTOL}")
+            if step == 4:
+                break
+            tok = torch.argmax(lk, -1)[:, None]
+            lk, ck = kern.decode_step(params, ck, tokens=tok, pos=plen + step)
+            lp, cp = plain.decode_step(params, cp, tokens=tok, pos=plen + step)
+        del ck, cp
+        pool_bytes = {}
+        for quant in (None, "int8"):
+            b = ContinuousBatcher(kern, params, max_slots=4, max_len=max_len,
+                                  kv_layout="paged", kv_quant=quant, device=dev)
+            pool_bytes["f32" if quant is None else "int8"] = b.kv_cache_bytes()
+            del b
+    log(f"  kv_cache_bytes (paged, 4 slots x 8192): {json.dumps(pool_bytes)} "
+        f"ratio={pool_bytes['f32'] / pool_bytes['int8']:.3f}")
+    del params
+    torch.cuda.empty_cache()
+    return worst, pool_bytes
+
+
+# --------------------------------------------------------------------------
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} | {smi} | tf32 matmul="
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
+
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s (nvcc "
+        f"{' '.join(_build.NVCC_FLAGS)})")
+
+    rows = kernel_phase(dev)
+    launches, serving = serving_phase(dev, args.seed)
+    worst, pool_bytes = f32_phase(dev, args.seed)
+
+    meta = {
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:97"),
+        "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention/kernel.py:91"),
+        "paged_decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                                   "src/repro/kernels/decode_attention/kernel.py:175"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "operations" if name == "flash_attention" else "bytes",
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+    log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; "
+        f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

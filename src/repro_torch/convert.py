@@ -1,0 +1,46 @@
+"""Convert the reference's parameters into the port's.
+
+``params_from_jax(np_tree, cfg)`` takes the pytree of
+``repro.models.decoder.DecoderLM.init`` with every leaf already turned into
+a numpy array (``jax.tree.map(np.asarray, params)`` on the caller's side, so
+this module imports no JAX). The reference stacks each block position's
+weights under ``params["blocks"][j]`` with a leading ``n_blocks`` axis; the
+port keeps one dict per layer, layer ``i * block_size + j`` being block
+``i``'s position ``j``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig, block_structure
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(np_tree, cfg: ModelConfig, device=None):
+    device = resolve_device(device)
+    block_size, n_blocks, _ = block_structure(cfg)
+    out = {}
+    for key in ("embed", "lm_head"):
+        if key in np_tree:
+            out[key] = _tensor(np_tree[key], device)
+    out["final_norm"] = _map(np_tree["final_norm"], lambda a: _tensor(a, device))
+    blocks = np_tree["blocks"]
+    out["layers"] = [_map(blocks[j], lambda a, i=i: _tensor(np.asarray(a)[i], device))
+                     for i in range(n_blocks) for j in range(block_size)]
+    return out

@@ -1,0 +1,101 @@
+// Shared helpers of the port's hand-written Hopper kernels.
+//
+// Each kernel library is built by repro_torch/kernels/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+// and bound with ctypes: a plain C entry per kernel takes a pointer to a
+// parameter struct (mirrored field for field by a ctypes.Structure) and the
+// CUDA stream, launches, and returns cudaGetLastError() so the Python wrapper
+// can raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Same finite mask value as the reference (repro.models.common.NEG_INF): a
+// row whose every position is masked stays finite instead of turning NaN.
+#define REPRO_NEG_INF (-2.3819763e38f)
+
+enum ReproDtype : int32_t { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+// 16-byte vector load of VEC consecutive elements of T, widened to f32.
+template <typename T> struct Vec;
+
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void load(const float* p, float* out) {
+    float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+};
+
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* out) {
+    uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is exact: the high half
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+template <> struct Vec<int8_t> {
+  static constexpr int N = 16;
+  __device__ static void load(const int8_t* p, float* out) {
+    uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        out[4 * i + j] = static_cast<float>(static_cast<int8_t>((w[i] >> (8 * j)) & 0xff));
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Round a probability to the dtype of V before the PV product, as the
+// reference does (``p.astype(v.dtype)``): bf16 rounds, f32 and int8 pools
+// (dequantised to f32) keep it.
+template <typename TV> __device__ __forceinline__ float round_like(float x) { return x; }
+template <> __device__ __forceinline__ float round_like<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Each library exports the CUDA error text so the wrapper can report it.
+extern "C" const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Raise the dynamic shared-memory cap of a kernel when it needs more than the
+// default 48 KB; returns the CUDA error so the entry can report it.
+template <typename K>
+static cudaError_t set_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}

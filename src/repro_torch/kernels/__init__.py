@@ -1,0 +1,32 @@
+"""Hand-written CUDA kernels for Hopper, one per Pallas kernel of the
+reference on the ported path.
+
+Each kernel ships three files, as in ``repro.kernels``:
+  kernel.py — the launch wrapper around the CUDA C++ source in ``csrc/``
+              (checks device, dtype, shape and strides; raises on what the
+              kernel does not take; counts its launches);
+  ref.py    — the plain PyTorch version, computing what the reference's
+              ``ref.py`` computes (counts its calls);
+  ops.py    — the public op: a CPU tensor goes to the plain version, a CUDA
+              tensor to the kernel. There is no fallback from one to the other.
+
+``LAUNCHES`` and ``PLAIN_CALLS`` are plain integer counters keyed by op
+name, so a run can show which path it went through: each kernel wrapper
+adds one where it launches its kernel, each plain version where it runs.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+KERNEL_NAMES = ("flash_attention", "decode_attention", "paged_decode_attention")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+# plus the model-level plain attention (``models.attention.plain=True``)
+PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNEL_NAMES + ("model_attention",)}
+
+
+def reset_counts() -> None:
+    for table in (LAUNCHES, PLAIN_CALLS):
+        for name in table:
+            table[name] = 0

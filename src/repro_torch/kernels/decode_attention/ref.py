@@ -1,0 +1,68 @@
+"""Plain PyTorch versions of single-token decode attention (twins of the
+reference's ``repro.kernels.decode_attention.ref``).
+
+q: (B, H, hd) — one new token per sequence.
+k, v: (B, KV, L, hd) — dense cache (RoPE'd keys at absolute slots).
+bias: additive f32 mask (0 = attend, NEG_INF = blocked), (L,) shared by the
+batch as in the reference, or (B, L) per sequence.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import PLAIN_CALLS
+
+
+def _bias_rows(bias):
+    return bias[None, None, None, :] if bias.dim() == 1 else bias[:, None, None, :]
+
+
+def decode_attention_ref(q, k, v, bias, *, softcap=0.0):
+    PLAIN_CALLS["decode_attention"] += 1
+    B, H, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    scale = hd**-0.5
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,bklh->bkgl", qg.float(), k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = s + _bias_rows(bias)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgl,bklh->bkgh", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, page_table, bias, *,
+                               k_scale=None, v_scale=None, softcap=0.0):
+    """Gather each sequence's cache through the page table, dequantize int8
+    pools, then the same masked softmax attention as
+    ``decode_attention_ref`` with a per-sequence bias.
+
+    q: (B,H,hd); k_pages/v_pages: (n_phys, bs, KV, hd); page_table: (B,P)
+    int32; bias: (B, P*bs) f32; k_scale/v_scale: (n_phys, bs, KV, 1) f32.
+    """
+    PLAIN_CALLS["paged_decode_attention"] += 1
+    B, H, hd = q.shape
+    _, bs, KV, _ = k_pages.shape
+    P = page_table.shape[1]
+    L = P * bs
+    idx = page_table.long()
+    k = k_pages[idx]  # (B, P, bs, KV, hd)
+    v = v_pages[idx]
+    if k_scale is not None:
+        k = k.float() * k_scale[idx]
+        v = v.float() * v_scale[idx]
+    k = k.reshape(B, L, KV, hd)
+    v = v.reshape(B, L, KV, hd)
+    G = H // KV
+    scale = hd**-0.5
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,blkh->bkgl", qg.float(), k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = s + bias[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgl,blkh->bkgh", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, H, hd).to(q.dtype)

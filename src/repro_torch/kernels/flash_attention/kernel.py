@@ -1,0 +1,83 @@
+"""Launch wrapper of the CUDA flash-attention forward
+(``src/repro_torch/csrc/flash_attention.cu``), the port of the Pallas kernel
+``repro.kernels.flash_attention.kernel.flash_attention_fwd``.
+
+The kernel reads q/k/v through their strides (unit last stride), so the model
+passes transposed views of its (B, S, heads, hd) projections without a copy,
+and writes the output into a (B, H, Sq, hd) view of a (B, Sq, H, hd) buffer,
+which the model reshapes back for free.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import _build
+
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int32
+
+
+class FlashParams(ctypes.Structure):
+    """Mirror of ``struct FlashParams`` in flash_attention.cu."""
+
+    _fields_ = [
+        ("q", ctypes.c_void_p), ("k", ctypes.c_void_p),
+        ("v", ctypes.c_void_p), ("o", ctypes.c_void_p),
+        ("q_sb", _I64), ("q_sh", _I64), ("q_ss", _I64),
+        ("k_sb", _I64), ("k_sh", _I64), ("k_ss", _I64),
+        ("v_sb", _I64), ("v_sh", _I64), ("v_ss", _I64),
+        ("o_sb", _I64), ("o_sh", _I64), ("o_ss", _I64),
+        ("B", _I32), ("H", _I32), ("KV", _I32), ("Sq", _I32), ("Sk", _I32),
+        ("hd", _I32),
+        ("causal", _I32), ("window", _I32), ("prefix_len", _I32),
+        ("q_offset", _I32),
+        ("scale", ctypes.c_float), ("softcap", ctypes.c_float),
+        ("dtype", _I32),
+    ]
+
+
+def _entry():
+    lib = _build.lib("flash_attention")
+    fn = lib.flash_attention_fwd
+    fn.argtypes = [ctypes.POINTER(FlashParams), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        prefix_len=0, q_offset=0):
+    """q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd) CUDA tensors of one dtype (f32 or
+    bf16), any strides with a unit last stride. Returns (B,H,Sq,hd)."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention_fwd takes CUDA tensors on one device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}; need one "
+                        f"of float32/bfloat16")
+    if hd not in _build.HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {_build.HEAD_DIMS}")
+    if k.shape != (B, KV, Sk, hd) or v.shape != k.shape or H % KV:
+        raise ValueError(f"shapes q={tuple(q.shape)} k={tuple(k.shape)} "
+                         f"v={tuple(v.shape)}")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
+        _build.check_rows(t, name)
+    prm = FlashParams(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        B, H, KV, Sq, Sk, hd,
+        int(bool(causal)), int(window or 0), int(prefix_len or 0),
+        int(q_offset), hd**-0.5, float(softcap or 0.0),
+        _build.dtype_code(q))
+    lib, fn = _entry()
+    _build.check(lib, fn(ctypes.byref(prm), _build.stream_ptr(q.device)),
+                 "flash_attention_fwd")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,191 @@
+"""Decoder LM for attention-only stacks (twin of ``repro.models.decoder``).
+
+The reference scans over parameter-stacked blocks; the port keeps the same
+block structure (``block_structure``) but stores one params dict per layer
+and runs the layers as a Python loop, in the reference's order (block i,
+position j is layer ``i * block_size + j``).
+
+Params: ``{"embed": (V, d), ["lm_head": (d, V)], "final_norm": {...},
+"layers": [{"norm1", "norm2", "attn", "mlp", ["norm1_post", "norm2_post"]},
+...]}``. They come either from the reference's weights
+(``repro_torch.convert.params_from_jax``) or from the port's own seeded
+``init``.
+
+Three modes share one layer body: ``prefill`` (returns per-layer caches),
+``decode`` (dense cache, one token per row, per-row positions) and
+``decode_paged`` (paged pools + page table). Mamba and RWKV mixers and MoE
+MLPs are not ported and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import attention as A
+from repro_torch.models import mlp as F
+from repro_torch.models.common import (apply_norm, dense_init, embed_init,
+                                       init_norm, softcap)
+from repro_torch.models.config import ModelConfig, block_structure
+
+
+class DecoderLM:
+    def __init__(self, cfg: ModelConfig, *, plain: bool = False):
+        """``plain=True`` runs attention through the model-level plain
+        PyTorch math on any device (the yardstick for the kernel path)."""
+        non_attn = sorted(set(cfg.mixer_pattern) - {"attn"})
+        if non_attn:
+            raise NotImplementedError(
+                f"{cfg.name}: mixers {non_attn} are not ported yet; the port "
+                f"serves attention-only stacks")
+        if cfg.dtype != cfg.param_dtype:
+            raise ValueError(f"{cfg.name}: the port computes in the param dtype; "
+                             f"dtype={cfg.dtype} != param_dtype={cfg.param_dtype}")
+        self.cfg = cfg
+        self.plain = plain
+        self.block_size, self.n_blocks, self.specs = block_structure(cfg)
+        self.layer_specs = [self.specs[j] for _ in range(self.n_blocks)
+                            for j in range(self.block_size)]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch_dtype(self.cfg.dtype)
+
+    # ------------------------------------------------------------------ init
+
+    def init(self, generator: torch.Generator, device=None, dtype=None):
+        """The port's own seeded weights (same shapes and scales as the
+        reference's init, not the same numbers). ``generator`` must live on
+        ``device``; weights are drawn there directly."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        dt = dtype or torch_dtype(cfg.param_dtype)
+        params = {}
+        if cfg.embed_inputs:
+            params["embed"] = embed_init(generator, (cfg.vocab_size, cfg.d_model),
+                                         dt, device)
+        if not (cfg.tie_embeddings and cfg.embed_inputs):
+            params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
+                                           dt, device)
+        params["final_norm"] = init_norm(cfg, dt, device)
+        layers = []
+        for spec in self.layer_specs:
+            if spec.is_moe:
+                raise NotImplementedError(f"{cfg.name}: MoE layers are not ported")
+            lp = {"norm1": init_norm(cfg, dt, device),
+                  "norm2": init_norm(cfg, dt, device),
+                  "attn": A.init_attention(generator, cfg, dt, device),
+                  "mlp": F.init_mlp(generator, cfg, dt, device)}
+            if cfg.post_norm:
+                lp["norm1_post"] = init_norm(cfg, dt, device)
+                lp["norm2_post"] = init_norm(cfg, dt, device)
+            layers.append(lp)
+        params["layers"] = layers
+        return params
+
+    # ----------------------------------------------------------------- layers
+
+    def _apply_layer(self, lp, x, spec, *, mode, positions=None, cache=None,
+                     pos=None, max_len=None, true_len=None, pages=None):
+        cfg = self.cfg
+        h = apply_norm(lp["norm1"], x, cfg)
+        if mode == "prefill":
+            y, new_cache = A.attn_prefill(lp["attn"], h, cfg, spec, positions,
+                                          max_len=max_len, true_len=true_len,
+                                          plain=self.plain)
+        elif mode == "decode_paged":
+            y, new_cache = A.attn_decode_paged(lp["attn"], h, cache, cfg, spec,
+                                               pos, pages, plain=self.plain)
+        else:
+            y, new_cache = A.attn_decode(lp["attn"], h, cache, cfg, spec, pos,
+                                         plain=self.plain)
+        if cfg.post_norm:
+            y = apply_norm(lp["norm1_post"], y, cfg)
+        x = x + y
+        h = apply_norm(lp["norm2"], x, cfg)
+        y = F.apply_mlp(lp["mlp"], h, cfg)
+        if cfg.post_norm:
+            y = apply_norm(lp["norm2_post"], y, cfg)
+        return x + y, new_cache
+
+    def _stack(self, params, x, mode, caches=None, **kw):
+        new_caches = []
+        for i, (lp, spec) in enumerate(zip(params["layers"], self.layer_specs)):
+            entry = None if caches is None else caches[i]
+            x, nc = self._apply_layer(lp, x, spec, mode=mode, cache=entry, **kw)
+            new_caches.append(nc)
+        return x, new_caches
+
+    # ------------------------------------------------------------- embeddings
+
+    def _embed_in(self, params, tokens):
+        cfg = self.cfg
+        dt = self.dtype
+        x = params["embed"][tokens.long()].to(dt)
+        if cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+        return x
+
+    def _unembed(self, params, x):
+        cfg = self.cfg
+        x = apply_norm(params["final_norm"], x, cfg)
+        if cfg.tie_embeddings and cfg.embed_inputs:
+            logits = x @ params["embed"].to(x.dtype).T
+        else:
+            logits = x @ params["lm_head"].to(x.dtype)
+        return softcap(logits, cfg.final_softcap)
+
+    # cache ------------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        """Dense per-layer caches: k/v (batch, L, KV, hd), pos (batch, L)."""
+        device = resolve_device(device)
+        return [A.init_cache_entry(self.cfg, spec, batch, max_len, self.dtype,
+                                   device) for spec in self.layer_specs]
+
+    def init_paged_cache(self, n_phys_blocks: int, block_size: int,
+                         quant: Optional[str] = None, device=None):
+        """Per-layer paged KV pools (block ids owned by
+        ``repro_torch.runtime.paging.PageAllocator``)."""
+        device = resolve_device(device)
+        return [A.init_paged_entry(self.cfg, spec, n_phys_blocks, block_size,
+                                   self.dtype, device, quant=quant)
+                for spec in self.layer_specs]
+
+    # ----------------------------------------------------------------- public
+
+    def prefill(self, params, *, tokens, max_len=None, true_len=None):
+        """tokens: (B,S). Returns (last-token logits (B,V), caches).
+        ``max_len`` sizes the caches for the decode that follows (default S).
+        ``true_len`` marks a right-padded bucketed prompt: logits come from
+        position ``true_len - 1`` and pad slots carry pos=-1."""
+        x = self._embed_in(params, tokens)
+        positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+        x, caches = self._stack(params, x, "prefill", positions=positions,
+                                max_len=max_len, true_len=true_len)
+        last = x[:, -1:] if true_len is None else x[:, int(true_len) - 1:int(true_len)]
+        return self._unembed(params, last)[:, 0], caches
+
+    def decode_step(self, params, cache, *, tokens, pos):
+        """One dense decode step. tokens: (B,1); pos: an int shared by the
+        batch or a (B,) tensor of per-row positions. Caches update in place.
+        Returns (logits (B,V), caches)."""
+        x = self._embed_in(params, tokens)
+        x, caches = self._stack(params, x, "decode", caches=cache, pos=pos)
+        return self._unembed(params, x)[:, 0], caches
+
+    def decode_step_paged(self, params, pools, *, tokens, pos_vec, pages):
+        """One slot-batched decode step against paged pools. tokens: (B,1);
+        pos_vec: (B,) per-slot positions; pages: (B,P) int32 page table.
+        Pools update in place. Returns (logits (B,V), pools)."""
+        x = self._embed_in(params, tokens)
+        x, pools = self._stack(params, x, "decode_paged", caches=pools,
+                               pos=pos_vec, pages=pages)
+        return self._unembed(params, x)[:, 0], pools
+
+
+def build_model(cfg: ModelConfig, *, plain: bool = False) -> DecoderLM:
+    return DecoderLM(cfg, plain=plain)

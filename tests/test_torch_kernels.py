@@ -1,0 +1,273 @@
+"""Port kernels, CPU side: the plain PyTorch versions of the hand-written CUDA
+kernels against the reference's jnp oracles (``ref.py``) and its Pallas
+kernels in interpret mode, at the reference's tolerance (atol 2e-5, f32).
+Also the guards that keep the port standing alone: no import of JAX or of
+the reference package, device dispatch without fallback, and the ctypes
+parameter structs mirroring the CUDA sources field for field.
+
+The CUDA kernels themselves run only on the card: tests/test_torch_gpu.py.
+"""
+
+import ctypes
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention.kernel import (  # noqa: E402
+    decode_attention_fwd as j_decode_kernel,
+    paged_decode_attention_fwd as j_paged_kernel)
+from repro.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref as j_decode_ref,
+    paged_decode_attention_ref as j_paged_ref)
+from repro.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_fwd as j_flash_kernel)
+from repro.kernels.flash_attention.ref import attention_ref as j_flash_ref  # noqa: E402
+from repro.optim.compress import quantize_int8 as j_quantize  # noqa: E402
+from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    DecodeParams, decode_attention_fwd, paged_decode_attention_fwd)
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention, paged_decode_attention)
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    FlashParams, flash_attention_fwd)
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.optim.compress import dequantize_int8, quantize_int8  # noqa: E402
+
+NEG_INF = -2.3819763e38
+ATOL = 2e-5
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _close(torch_out, *jax_outs, atol=ATOL):
+    for ref in jax_outs:
+        np.testing.assert_allclose(torch_out.float().numpy(),
+                                   np.asarray(ref, np.float32), atol=atol,
+                                   rtol=atol)
+
+
+# ---------------------------------------------------------------- flash (B2)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(window=32),
+    dict(softcap=30.0),
+    dict(prefix_len=24),
+    dict(q_offset=16),
+    dict(window=48, softcap=20.0),
+], ids=["causal", "window", "softcap", "prefix", "q_offset", "window_softcap"])
+@pytest.mark.parametrize("H,KV,hd", [(4, 2, 32), (4, 4, 64), (8, 1, 32)],
+                         ids=["gqa", "mha", "mqa"])
+def test_flash_plain_matches_reference(kw, H, KV, hd):
+    rng = np.random.default_rng(1)
+    B, S = 2, 128
+    q = rng.normal(size=(B, H, S, hd)).astype(np.float32)
+    k = rng.normal(size=(B, KV, S, hd)).astype(np.float32)
+    v = rng.normal(size=(B, KV, S, hd)).astype(np.float32)
+    reset_counts()
+    o = flash_attention(_t(q), _t(k), _t(v), causal=True, **kw)
+    assert PLAIN_CALLS["flash_attention"] == 1 and LAUNCHES["flash_attention"] == 0
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    o_ref = j_flash_ref(jq, jk, jv, causal=True, **kw)
+    o_pallas = j_flash_kernel(jq, jk, jv, causal=True, block_q=64, block_k=64,
+                              interpret=True, **kw)
+    _close(o, o_ref, o_pallas)
+
+
+def test_flash_plain_bf16_matches_reference():
+    rng = np.random.default_rng(2)
+    B, H, KV, S, hd = 1, 4, 2, 64, 32
+    q, k = rng.normal(size=(B, H, S, hd)), rng.normal(size=(B, KV, S, hd))
+    v = rng.normal(size=(B, KV, S, hd))
+    tq, tk, tv = (_t(a.astype(np.float32)).bfloat16() for a in (q, k, v))
+    o = flash_attention(tq, tk, tv, window=16)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    _close(o, j_flash_ref(jq, jk, jv, window=16), atol=2e-2)
+
+
+# ---------------------------------------------------------- dense decode (B3)
+
+
+@pytest.mark.parametrize("L,valid,softcap", [(64, 64, 0.0), (256, 77, 0.0),
+                                             (128, 5, 50.0)])
+def test_decode_plain_matches_reference(L, valid, softcap):
+    rng = np.random.default_rng(3)
+    B, H, KV, hd = 2, 4, 2, 32
+    q = rng.normal(size=(B, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, KV, L, hd)).astype(np.float32)
+    v = rng.normal(size=(B, KV, L, hd)).astype(np.float32)
+    bias = np.where(np.arange(L) < valid, 0.0, NEG_INF).astype(np.float32)
+    reset_counts()
+    o = decode_attention(_t(q), _t(k), _t(v), _t(bias), softcap=softcap)
+    assert PLAIN_CALLS["decode_attention"] == 1
+    args = tuple(map(jnp.asarray, (q, k, v, bias)))
+    _close(o, j_decode_ref(*args, softcap=softcap),
+           j_decode_kernel(*args, softcap=softcap, block_l=min(64, L),
+                           interpret=True))
+
+
+def test_decode_per_sequence_bias_matches_rowwise_reference():
+    """The port's dense decode takes one bias row per sequence (its batcher
+    writes the slot axis out); each row equals the reference's shared-bias
+    call on that sequence alone."""
+    rng = np.random.default_rng(4)
+    B, H, KV, L, hd = 3, 4, 2, 64, 32
+    q = rng.normal(size=(B, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, KV, L, hd)).astype(np.float32)
+    v = rng.normal(size=(B, KV, L, hd)).astype(np.float32)
+    valid = np.array([64, 17, 1])
+    bias = np.where(np.arange(L)[None] < valid[:, None], 0.0,
+                    NEG_INF).astype(np.float32)
+    o = decode_attention(_t(q), _t(k), _t(v), _t(bias))
+    for b in range(B):
+        ref = j_decode_ref(*(jnp.asarray(a[b:b + 1]) for a in (q, k, v)),
+                           jnp.asarray(bias[b]))
+        _close(o[b:b + 1], ref)
+
+
+# ---------------------------------------------------------- paged decode (B1)
+
+
+def _paged_inputs(rng, *, B=2, H=4, KV=2, hd=32, bs=16, P=4, n_phys=12,
+                  valid=(33, 17)):
+    L = P * bs
+    kp = rng.standard_normal((n_phys, bs, KV, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_phys, bs, KV, hd)).astype(np.float32)
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    tbl = np.stack([rng.permutation(np.arange(2, n_phys))[:P]
+                    for _ in range(B)]).astype(np.int32)
+    bias = np.where(np.arange(L)[None] < np.asarray(valid)[:, None], 0.0,
+                    NEG_INF).astype(np.float32)
+    return q, kp, vp, tbl, bias
+
+
+@pytest.mark.parametrize("valid", [(64, 1), (16, 17), (15, 48), (33, 49)])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_paged_plain_matches_reference(valid, softcap):
+    """Lengths straddle the 16-token page boundaries."""
+    rng = np.random.default_rng(5)
+    q, kp, vp, tbl, bias = _paged_inputs(rng, valid=valid)
+    reset_counts()
+    o = paged_decode_attention(*map(_t, (q, kp, vp, tbl, bias)), softcap=softcap)
+    assert PLAIN_CALLS["paged_decode_attention"] == 1
+    args = tuple(map(jnp.asarray, (q, kp, vp, tbl, bias)))
+    _close(o, j_paged_ref(*args, softcap=softcap),
+           j_paged_kernel(*args, softcap=softcap, interpret=True))
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_paged_plain_int8_matches_reference(softcap):
+    rng = np.random.default_rng(6)
+    q, kp, vp, tbl, bias = _paged_inputs(rng)
+    jqk, jks = j_quantize(jnp.asarray(kp))
+    jqv, jvs = j_quantize(jnp.asarray(vp))
+    qk, ks = quantize_int8(_t(kp))
+    qv, vs = quantize_int8(_t(vp))
+    np.testing.assert_array_equal(qk.numpy(), np.asarray(jqk))
+    np.testing.assert_array_equal(ks.numpy(), np.asarray(jks))
+    o = paged_decode_attention(_t(q), qk, qv, _t(tbl), _t(bias), k_scale=ks,
+                               v_scale=vs, softcap=softcap)
+    jargs = (jnp.asarray(q), jqk, jqv, jnp.asarray(tbl), jnp.asarray(bias))
+    _close(o, j_paged_ref(*jargs, k_scale=jks, v_scale=jvs, softcap=softcap),
+           j_paged_kernel(*jargs, k_scale=jks, v_scale=jvs, softcap=softcap,
+                          interpret=True))
+
+
+# ------------------------------------------------------------- int8 rounding
+
+
+def test_quantize_int8_rounds_half_to_even_like_reference():
+    # rows whose amax is 127 make scale exactly 1.0: x/scale lands on .5 ties
+    x = np.array([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.49]],
+                 np.float32)
+    x = np.concatenate([x, np.random.default_rng(7).normal(size=(5, 8))
+                        .astype(np.float32)])
+    q, s = quantize_int8(_t(x))
+    jq, js = j_quantize(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert q[0, 1:7].tolist() == [0, 2, 2, 0, -2, -2]
+    np.testing.assert_allclose(dequantize_int8(q, s).numpy(),
+                               np.asarray(jq, np.float32) * np.asarray(js))
+
+
+# ------------------------------------------------------------------- guards
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A launch wrapper never runs the plain version: it takes CUDA tensors
+    or raises (the ops choose by device, with no fallback)."""
+    q = torch.zeros(1, 2, 16, 32)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, q, q)
+    qd = torch.zeros(1, 2, 32)
+    kd = torch.zeros(1, 2, 16, 32)
+    with pytest.raises(ValueError):
+        decode_attention_fwd(qd, kd, kd, torch.zeros(16))
+    with pytest.raises(ValueError):
+        paged_decode_attention_fwd(qd, torch.zeros(3, 16, 2, 32),
+                                   torch.zeros(3, 16, 2, 32),
+                                   torch.zeros(1, 1, dtype=torch.int32),
+                                   torch.zeros(1, 16))
+    with pytest.raises(ValueError):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+_CTYPE_SIZES = {"const void*": 8, "void*": 8, "const float*": 8,
+                "const int32_t*": 8, "int64_t": 8, "int32_t": 4, "float": 4}
+
+
+@pytest.mark.parametrize("src,struct,mirror", [
+    ("flash_attention.cu", "FlashParams", FlashParams),
+    ("decode_attention.cu", "DecodeParams", DecodeParams),
+])
+def test_ctypes_struct_mirrors_cuda_source(src, struct, mirror):
+    """The C entries take a pointer to a parameter struct; its ctypes mirror
+    must list the same fields in the same order with the same sizes."""
+    text = (SRC / "repro_torch" / "csrc" / src).read_text()
+    body = re.search(r"struct %s \{(.*?)\};" % struct, text, re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip()
+        if not line:
+            continue
+        ctype, names = re.match(r"((?:const )?\w+\*?)\s+(.*);", line).groups()
+        fields += [(n.strip(), _CTYPE_SIZES[ctype]) for n in names.split(",")]
+    got = [(name, ctypes.sizeof(ctype)) for name, ctype in mirror._fields_]
+    assert got == fields
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """Every module of repro_torch imports in a fresh interpreter with
+    neither ``jax`` nor ``repro`` ending up in ``sys.modules``."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    text = (SRC.parent / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|repro)\b", text, re.M)
