@@ -8,20 +8,29 @@ checkout of the repository. Phases (none catches its own failure):
 
 1. build — every ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a), in parallel;
 2. kernels — each hand-written kernel against its plain PyTorch version on
-   the card at starcoder2-3b full-width shapes (H=24, KV=2, hd=128, bs=16,
-   B=4, L=4096; flash S=4608, window 4096), plus softcap=50 and hd=256 cases.
-   Tolerances: atol 2e-5 for f32 and int8-dequantised pools, 2e-2 for bf16.
+   the card at full-width shapes. Attention at starcoder2-3b's (H=24, KV=2,
+   hd=128, bs=16, B=4, L=4096; flash S=4608, window 4096), plus softcap=50
+   and hd=256 cases; tolerances atol 2e-5 for f32 and int8-dequantised
+   pools, 2e-2 for bf16. The RWKV-6 scan at rwkv6-3b's (H=40, hd=64): a
+   4500-token prefill and a 4-slot decode step in bf16, an f32 prefill, and
+   two value-column splits bitwise equal; tolerance atol = rtol = 1e-3.
    Times from CUDA events: kernel, plain version, and one PyTorch library
-   call computing the same function (timed only; the port never calls it);
-3. serving — full-width starcoder2-3b (bf16, seeded random weights) through
-   ``ContinuousBatcher`` (4 slots, max_len 8192, 16-token pages, bucket 16)
-   for 8 requests, paged, paged-int8 and dense. The launch and plain-call
-   counts are zeroed just before each layout and read just after: every
-   kernel of the layout must have launched, no plain version may have run,
-   and paged tokens must equal dense tokens;
-4. f32 model check — full width in f32: prefill logits of a 513-token prompt
-   and the 4 dense decode steps after it, kernel path against the plain path
-   on the card, within 2e-4 of max |logit|.
+   call computing the same function where there is one (timed only; the
+   port never calls it). The scan's decode step is too short for events
+   over back-to-back calls to see past the host; its kernel time comes
+   from torch.profiler;
+3. serving — full width, bf16, seeded random weights, through
+   ``ContinuousBatcher`` (4 slots, max_len 8192) for 8 requests of prompt
+   lengths ``PROMPT_LENS`` and 24 new tokens each: starcoder2-3b paged,
+   paged-int8 and dense (16-token pages, bucket 16), then rwkv6-3b dense
+   (exact-length prefill). The launch and plain-call counts are zeroed just
+   before each run and read just after: every kernel of the run must have
+   launched, no plain version may have run, and paged tokens must equal
+   dense tokens;
+4. f32 model check — starcoder2-3b, then rwkv6-3b, full width in f32:
+   prefill logits of a 513-token prompt and the 4 dense decode steps after
+   it, kernel path against the plain path on the card, within 2e-4 of
+   max |logit|.
 
 TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN). The
 last lines are the kernel table (JSON), the card's name and power limit, and
@@ -43,6 +52,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / f32 F
 LOGIT_RTOL = 2e-4             # f32 kernel path vs plain path, of max |logit|
 NEG_INF = -2.3819763e38
 ARCH = "starcoder2-3b"
+RWKV_ARCH = "rwkv6-3b"
 PROMPT_LENS = (17, 100, 513, 1000, 2047, 4500, 31, 250)
 MAX_NEW = 24
 
@@ -71,8 +81,12 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes, flops, dtype_name):
-    return 1e3 * max(n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name])
+def bound(n_bytes, flops, dtype_name):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def nbytes(*tensors):
@@ -142,8 +156,7 @@ def kernel_phase(dev):
                 plain_ms=time_ms(lambda: attention_ref(q, k, v, window=W), 3),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True), 5),
-                bound_ms=bound_ms(nbytes(q, k, v, o), 4 * B * H * hd * pairs,
-                                  "bfloat16"),
+                **bound(nbytes(q, k, v, o), 4 * B * H * hd * pairs, "bfloat16"),
                 shape=f"B={B} H={H} KV={KV} S={S} hd={hd} window={W} bf16")
         del q, k, v, o, ref
     q, k, v = (randn((1, 1024, n, hd), bf16).transpose(1, 2) for n in (H, KV, KV))
@@ -183,8 +196,8 @@ def kernel_phase(dev):
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     q[:, :, None], *caches[next(it) % n_copies], attn_mask=mask4,
                     enable_gqa=True), 40),
-                bound_ms=bound_ms(nbytes(q, k, v, bias, o), 4 * B * H * hd * L,
-                                  "bfloat16"),
+                **bound(nbytes(q, k, v, bias, o), 4 * B * H * hd * L,
+                        "bfloat16"),
                 shape=f"B={B} H={H} KV={KV} L={L} hd={hd} bf16, per-slot bias")
         del caches, k, v
     q = randn((B, H, hd), bf16)
@@ -225,8 +238,8 @@ def kernel_phase(dev):
                 plain_ms=time_ms(lambda: paged_decode_attention_ref(
                     q, *pl[next(it) % n_copies], table, bias), 20),
                 library_ms=None,  # no single PyTorch call gathers through a page table
-                bound_ms=bound_ms(nbytes(q, table, bias, o) + gathered,
-                                  4 * B * H * hd * L, "bfloat16"),
+                **bound(nbytes(q, table, bias, o) + gathered,
+                        4 * B * H * hd * L, "bfloat16"),
                 shape=f"B={B} H={H} KV={KV} P={P} bs={bs} hd={hd} bf16 pool")
         del pl, kp, vp
     kf, vf = pools(f32, 1)[0]
@@ -241,8 +254,8 @@ def kernel_phase(dev):
                                           v_scale=vs), tol[dtype])
     ms8 = time_ms(lambda: paged_decode_attention_fwd(
         q, qk, qv, table, bias, k_scale=ks, v_scale=vs), 40)
-    b8 = bound_ms(nbytes(q, table, bias, o) + B * P * bs * KV * (hd + 4) * 2,
-                  4 * B * H * hd * L, "bfloat16")
+    b8 = bound(nbytes(q, table, bias, o) + B * P * bs * KV * (hd + 4) * 2,
+               4 * B * H * hd * L, "bfloat16")["bound_ms"]
     log(f"  paged int8 pool (bf16 q): ms={ms8:.4f} bound_ms={b8:.4f} "
         f"(L2-warm: one pool)")
     q = randn((B, H, hd), bf16)
@@ -259,11 +272,175 @@ def kernel_phase(dev):
     return rows
 
 
+def rwkv_kernel_phase(dev):
+    """B5 at rwkv6-3b full width: a prefill of the longest serving prompt
+    (B=1, H=40, S=4500, hd=64) and a 4-slot decode step, r/k/v in bf16 as
+    the model passes them ((B,H,S,hd) views of (B,S,H,hd) storage), w/u/s0
+    f32, nonzero s0; plus an f32 prefill and a bitwise check across two
+    value-column splits. Tolerance: the reference's RWKV atol = rtol = 1e-3
+    (tests/test_kernels.py); both sides compute in f32 from the same widened
+    inputs, so they differ only in summation order."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_fwd
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = 1e-3
+    H, hd = 40, 64
+
+    def case(B, S, dtype):
+        def seq(t):
+            return t.reshape(B, S, H, hd).transpose(1, 2)
+
+        r, k, v = (seq(torch.randn(B * S * H * hd, generator=gen, device=dev)
+                       .to(dtype)) for _ in range(3))
+        w = seq(0.2 + 0.799 * torch.rand(B * S * H * hd, generator=gen, device=dev))
+        u = torch.randn((H, hd), generator=gen, device=dev)
+        s0 = 0.5 * torch.randn((B, H, hd, hd), generator=gen, device=dev)
+        return r, k, v, w, u, s0
+
+    def flops(B, S):
+        # the least the function needs per (b, h, t): r.S is one FMA and
+        # w*S + k*v a multiply and an FMA per state element (5 flops); the
+        # bonus factors as (r . (u*k)) v, 5 flops per key row
+        return B * H * S * (5 * hd * hd + 5 * hd)
+
+    log("kernel phase: rwkv6_scan (B5)")
+    B, S = 1, max(PROMPT_LENS)
+    args = case(B, S, bf16)
+    y, sT = rwkv6_scan_fwd(*args)
+    y_ref, sT_ref = rwkv6_scan_ref(*args)
+    err = max(_check(f"rwkv6 bf16 prefill B={B} H={H} S={S} y", y, y_ref, tol),
+              _check(f"rwkv6 bf16 prefill B={B} H={H} S={S} sT", sT, sT_ref, tol))
+    y8, s8 = rwkv6_scan_fwd(*args, _cols=8)
+    if not (torch.equal(y8, y) and torch.equal(s8, sT)):
+        raise AssertionError("rwkv6: 8 and 16 value columns per CTA differ")
+    log("  rwkv6 prefill: 8 == 16 value columns per CTA, bitwise")
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: rwkv6_scan_fwd(*args), 10),
+        plain_ms=time_ms(lambda: rwkv6_scan_ref(*args), 1, warmup=1),
+        library_ms=None,  # no single PyTorch call computes the WKV recurrence
+        **bound(nbytes(*args, y, sT), flops(B, S), "float32"),
+        shape=f"prefill B={B} H={H} S={S} hd={hd}, r/k/v bf16, w/u/s0 f32")
+    del args, y, sT, y_ref, sT_ref, y8, s8
+
+    # decode: 4 slots, one step, the state updated in place as the model
+    # does; states rotated over 32 copies (84 MB) so each launch reads HBM
+    B, n_copies = 4, 32
+    r, k, v, w, u, s0 = case(B, 1, bf16)
+    y, sT = rwkv6_scan_fwd(r, k, v, w, u, s0)
+    y_ref, sT_ref = rwkv6_scan_ref(r, k, v, w, u, s0)
+    derr = max(_check(f"rwkv6 bf16 decode B={B} S=1 y", y, y_ref, tol),
+               _check(f"rwkv6 bf16 decode B={B} S=1 sT", sT, sT_ref, tol))
+    states = [s0.clone() for _ in range(n_copies)]
+    it = iter(range(10**9))
+
+    def step(fn):
+        st = states[next(it) % n_copies]
+        return fn(r, k, v, w, u, st, state_out=st)
+
+    # the kernel's own time from the profiler; CUDA events over back-to-back
+    # calls time how fast the wrapper issues launches, not the kernel
+    row.update(
+        max_abs_err=max(err, derr),
+        decode_ms=kernel_device_ms(lambda: step(rwkv6_scan_fwd), 100,
+                                   "rwkv6_kernel"),
+        decode_issue_ms=time_ms(lambda: step(rwkv6_scan_fwd), 100),
+        decode_plain_ms=time_ms(lambda: step(rwkv6_scan_ref), 50),
+        decode_bound_ms=bound(nbytes(r, k, v, w, u, s0, y, sT), flops(B, 1),
+                              "float32")["bound_ms"])
+    del r, k, v, w, u, s0, y, sT, states
+
+    args = case(1, 513, f32)
+    y, sT = rwkv6_scan_fwd(*args)
+    y_ref, sT_ref = rwkv6_scan_ref(*args)
+    _check("rwkv6 f32 prefill S=513 y", y, y_ref, tol)
+    _check("rwkv6 f32 prefill S=513 sT", sT, sT_ref, tol)
+    log(f"  rwkv6 prefill ms={row['ms']:.4f} plain_ms={row['plain_ms']:.2f} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); decode device "
+        f"ms={row['decode_ms']:.5f} (profiler) issue ms={row['decode_issue_ms']:.4f} "
+        f"(events, back-to-back wrapper calls) plain_ms={row['decode_plain_ms']:.4f} "
+        f"bound_ms={row['decode_bound_ms']:.5f}; library: none")
+    del args, y, sT, y_ref, sT_ref
+    torch.cuda.empty_cache()
+    return {"rwkv6_scan": row}
+
+
+def kernel_device_ms(fn, n, kernel):
+    """Mean device time per launch of the CUDA kernels whose name holds
+    ``kernel``, from torch.profiler over ``n`` calls of ``fn``, each of
+    which must launch one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    launches = sum(e.count for e in events)
+    if launches != n:
+        raise AssertionError(f"profiler saw {launches} launches of {kernel}, "
+                             f"expected {n}")
+    return sum(e.self_device_time_total for e in events) / n / 1e3
+
+
+def decode_profile(fn, n=5):
+    """The device's busy share of ``n`` calls of ``fn``: the CUDA kernels'
+    time from torch.profiler over the wall time of ``n`` unprofiled calls
+    (the profiler slows the host, so it does not time the wall), and the
+    kernels that take the most. None where the profiler records no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(t for _, t in kernels)
+    if device_us <= 0:
+        return None
+    top = sorted(kernels, key=lambda kt: -kt[1])[:5]
+    return dict(busy_share=device_us / wall_us,
+                wall_ms_per_step=wall_us / n / 1e3,
+                device_ms_per_step=device_us / n / 1e3,
+                top_kernels_ms={k[:72]: round(t / n / 1e3, 4) for k, t in top})
+
+
 # --------------------------------------------------------------------------
 # phase 3: full-width serving through ContinuousBatcher
 
 
-def serving_phase(dev, seed):
+STARCODER_LAYOUTS = {  # layout: (batcher options, kernels it must launch)
+    "paged": (dict(kv_layout="paged"), ("flash_attention", "paged_decode_attention")),
+    "paged-int8": (dict(kv_layout="paged", kv_quant="int8"),
+                   ("flash_attention", "paged_decode_attention")),
+    "dense": (dict(kv_layout="dense"), ("flash_attention", "decode_attention")),
+}
+RWKV_LAYOUTS = {"dense": (dict(kv_layout="dense"), ("rwkv6_scan",))}
+
+
+def serving_phase(dev, seed, arch, layouts):
+    """One ContinuousBatcher run per layout, the counts zeroed just before
+    and read just after each."""
     import numpy as np
     import torch
 
@@ -301,11 +478,11 @@ def serving_phase(dev, seed):
             self.decode_ms.append(ms)
             return out
 
-    cfg = get_config(ARCH)
-    log(f"serving phase: {ARCH} full width: layers={cfg.num_layers} "
+    cfg = get_config(arch)
+    log(f"serving phase: {arch} full width: layers={cfg.num_layers} "
         f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
         f"hd={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
-        f"window={cfg.window_size} dtype={cfg.dtype}")
+        f"window={cfg.window_size} mixers={cfg.mixer_pattern} dtype={cfg.dtype}")
     t0 = time.perf_counter()
     probe = TimedModel(cfg)
     params = probe.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
@@ -315,15 +492,9 @@ def serving_phase(dev, seed):
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
 
-    layouts = {"paged": dict(kv_layout="paged"),
-               "paged-int8": dict(kv_layout="paged", kv_quant="int8"),
-               "dense": dict(kv_layout="dense")}
-    needed = {"paged": ("flash_attention", "paged_decode_attention"),
-              "paged-int8": ("flash_attention", "paged_decode_attention"),
-              "dense": ("flash_attention", "decode_attention")}
     launches = {name: 0 for name in KERNEL_NAMES}
     tokens, summary = {}, {}
-    for name, kw in layouts.items():
+    for name, (kw, needed) in layouts.items():
         model = TimedModel(cfg)
         torch.cuda.reset_peak_memory_stats(dev)
         b = ContinuousBatcher(model, params, max_slots=4, max_len=8192,
@@ -341,7 +512,7 @@ def serving_phase(dev, seed):
             counts, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
         if not all(r.finish_step is not None and len(r.tokens) == MAX_NEW for r in reqs):
             raise AssertionError(f"{name}: not every request finished")
-        missing = [k for k in needed[name] if counts[k] == 0]
+        missing = [k for k in needed if counts[k] == 0]
         if missing:
             raise AssertionError(f"{name}: kernels never launched: {missing}")
         if sum(plain.values()):
@@ -361,14 +532,22 @@ def serving_phase(dev, seed):
             max_memory_allocated=torch.cuda.max_memory_allocated(dev),
             launches=counts, plain_calls=sum(plain.values()))
         log(f"  {name}: {json.dumps(summary[name])}")
+        if name == "dense":  # after the counted run: these launches go uncounted
+            pos = torch.as_tensor(b.pos, device=dev)
+            with torch.inference_mode():
+                prof = decode_profile(lambda: DecoderLM.decode_step(
+                    model, params, b.cache_slots, tokens=b.last_tok, pos=pos))
+            log(f"  {name} decode step profile (4 slots): "
+                f"{json.dumps(prof) if prof else 'not measured (no device time recorded)'}")
         del b, model
         torch.cuda.empty_cache()
-    if tokens["paged"] != tokens["dense"]:
-        raise AssertionError("paged tokens differ from dense tokens")
-    agree = np.mean([a == b for ra, rb in zip(tokens["paged-int8"], tokens["dense"])
-                     for a, b in zip(ra, rb)])
-    log(f"  paged tokens == dense tokens: True; paged-int8 agrees with dense on "
-        f"{agree:.4f} of tokens")
+    if "paged" in tokens:
+        if tokens["paged"] != tokens["dense"]:
+            raise AssertionError("paged tokens differ from dense tokens")
+        agree = np.mean([a == b for ra, rb in zip(tokens["paged-int8"], tokens["dense"])
+                         for a, b in zip(ra, rb)])
+        log(f"  paged tokens == dense tokens: True; paged-int8 agrees with dense "
+            f"on {agree:.4f} of tokens")
     del params
     torch.cuda.empty_cache()
     return launches, summary
@@ -389,7 +568,9 @@ def _leaves(tree):
 # phase 4: full-width f32 logits, kernel path vs plain path
 
 
-def f32_phase(dev, seed):
+def f32_phase(dev, seed, arch):
+    """Prefill a 513-token prompt (attention: in a 1024 bucket; RWKV: exact
+    length) and 4 dense decode steps, kernel path against plain path."""
     import numpy as np
     import torch
 
@@ -397,19 +578,22 @@ def f32_phase(dev, seed):
     from repro_torch.models.decoder import DecoderLM
     from repro_torch.runtime.batching import ContinuousBatcher
 
-    cfg = get_config(ARCH).replace(dtype="float32", param_dtype="float32")
+    cfg = get_config(arch).replace(dtype="float32", param_dtype="float32")
     kern, plain = DecoderLM(cfg), DecoderLM(cfg, plain=True)
     params = kern.init(torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
     rng = np.random.default_rng(seed + 1)
-    plen, bucket, max_len = 513, 1024, 8192
+    bucketed = kern.bucketed_prefill
+    plen, max_len = 513, 8192
+    bucket = 1024 if bucketed else plen
     toks = np.zeros((1, bucket), np.int64)
     toks[0, :plen] = rng.integers(1, cfg.vocab_size, plen)
     toks = torch.as_tensor(toks, device=dev)
-    log(f"f32 phase: {ARCH} full width in float32, prompt {plen} in bucket {bucket}")
+    kw = dict(max_len=max_len, true_len=plen if bucketed else None)
+    log(f"f32 phase: {arch} full width in float32, prompt {plen} in bucket {bucket}")
     worst = 0.0
     with torch.inference_mode():
-        lk, ck = kern.prefill(params, tokens=toks, max_len=max_len, true_len=plen)
-        lp, cp = plain.prefill(params, tokens=toks, max_len=max_len, true_len=plen)
+        lk, ck = kern.prefill(params, tokens=toks, **kw)
+        lp, cp = plain.prefill(params, tokens=toks, **kw)
         for step in range(5):
             scale = lp.abs().max().item()
             rel = (lk - lp).abs().max().item() / scale
@@ -424,17 +608,18 @@ def f32_phase(dev, seed):
             lk, ck = kern.decode_step(params, ck, tokens=tok, pos=plen + step)
             lp, cp = plain.decode_step(params, cp, tokens=tok, pos=plen + step)
         del ck, cp
-        pool_bytes = {}
-        for quant in (None, "int8"):
-            b = ContinuousBatcher(kern, params, max_slots=4, max_len=max_len,
-                                  kv_layout="paged", kv_quant=quant, device=dev)
-            pool_bytes["f32" if quant is None else "int8"] = b.kv_cache_bytes()
-            del b
-    log(f"  kv_cache_bytes (paged, 4 slots x 8192): {json.dumps(pool_bytes)} "
-        f"ratio={pool_bytes['f32'] / pool_bytes['int8']:.3f}")
+        if bucketed:
+            pool_bytes = {}
+            for quant in (None, "int8"):
+                b = ContinuousBatcher(kern, params, max_slots=4, max_len=max_len,
+                                      kv_layout="paged", kv_quant=quant, device=dev)
+                pool_bytes["f32" if quant is None else "int8"] = b.kv_cache_bytes()
+                del b
+            log(f"  kv_cache_bytes (paged, 4 slots x 8192): {json.dumps(pool_bytes)} "
+                f"ratio={pool_bytes['f32'] / pool_bytes['int8']:.3f}")
     del params
     torch.cuda.empty_cache()
-    return worst, pool_bytes
+    return worst
 
 
 # --------------------------------------------------------------------------
@@ -475,8 +660,12 @@ def main(argv=None):
         f"{' '.join(_build.NVCC_FLAGS)})")
 
     rows = kernel_phase(dev)
-    launches, serving = serving_phase(dev, args.seed)
-    worst, pool_bytes = f32_phase(dev, args.seed)
+    rows.update(rwkv_kernel_phase(dev))
+    launches, _ = serving_phase(dev, args.seed, ARCH, STARCODER_LAYOUTS)
+    rwkv_launches, _ = serving_phase(dev, args.seed, RWKV_ARCH, RWKV_LAYOUTS)
+    for name, n in rwkv_launches.items():
+        launches[name] += n
+    worst = max(f32_phase(dev, args.seed, ARCH), f32_phase(dev, args.seed, RWKV_ARCH))
 
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -485,6 +674,8 @@ def main(argv=None):
                              "src/repro/kernels/decode_attention/kernel.py:91"),
         "paged_decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                    "src/repro/kernels/decode_attention/kernel.py:175"),
+        "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                       "src/repro/kernels/rwkv6_scan/kernel.py:61"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -493,8 +684,9 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "operations" if name == "flash_attention" else "bytes",
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"],
+            **{k: v for k, v in r.items() if k.startswith("decode_")}})
     log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``get_config`` + reduced smoke configs.
 
-A copy of ``repro.configs.registry`` restricted to the attention-only stacks
-the port serves so far (starcoder2-3b, gemma2-2b). ``smoke_config`` is the
-reference's reduction verbatim, so a smoke config built here equals the
-reference's field for field.
+A copy of ``repro.configs.registry`` restricted to the stacks the port serves
+so far: attention-only (starcoder2-3b, gemma2-2b) and RWKV-6 (rwkv6-3b).
+``smoke_config`` is the reference's reduction verbatim, so a smoke config
+built here equals the reference's field for field.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from repro_torch.models.config import ModelConfig, block_structure
 _MODULES: Dict[str, str] = {
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -6,7 +6,9 @@ a numpy array (``jax.tree.map(np.asarray, params)`` on the caller's side, so
 this module imports no JAX). The reference stacks each block position's
 weights under ``params["blocks"][j]`` with a leading ``n_blocks`` axis; the
 port keeps one dict per layer, layer ``i * block_size + j`` being block
-``i``'s position ``j``.
+``i``'s position ``j``. Nested layer dicts (``attn``/``mlp``, RWKV's
+``tm``/``cm``) and ``ln0`` are carried as they are; every leaf keeps its
+dtype (RWKV's f32 ``decay_base``/``bonus``/``ln_x`` in a bf16 model too).
 """
 
 from __future__ import annotations
@@ -36,10 +38,9 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None):
     device = resolve_device(device)
     block_size, n_blocks, _ = block_structure(cfg)
     out = {}
-    for key in ("embed", "lm_head"):
+    for key in ("embed", "lm_head", "ln0", "final_norm"):
         if key in np_tree:
-            out[key] = _tensor(np_tree[key], device)
-    out["final_norm"] = _map(np_tree["final_norm"], lambda a: _tensor(a, device))
+            out[key] = _map(np_tree[key], lambda a: _tensor(a, device))
     blocks = np_tree["blocks"]
     out["layers"] = [_map(blocks[j], lambda a, i=i: _tensor(np.asarray(a)[i], device))
                      for i in range(n_blocks) for j in range(block_size)]

@@ -5,9 +5,11 @@
       --batch 4 --prompt 32 --gen 32              # on the card (default)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
       --smoke --device cpu                         # plain PyTorch path
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b  # RWKV-6
 
-Weights are the port's own seeded init (``--seed``). The reference's
-``--scenario`` fleet mode is not ported yet.
+``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS`` (starcoder2-3b,
+gemma2-2b, rwkv6-3b). Weights are the port's own seeded init (``--seed``).
+The reference's ``--scenario`` fleet mode is not ported yet.
 """
 
 from __future__ import annotations

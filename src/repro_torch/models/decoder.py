@@ -1,20 +1,26 @@
-"""Decoder LM for attention-only stacks (twin of ``repro.models.decoder``).
+"""Decoder LM for attention and RWKV-6 stacks (twin of
+``repro.models.decoder``).
 
 The reference scans over parameter-stacked blocks; the port keeps the same
 block structure (``block_structure``) but stores one params dict per layer
 and runs the layers as a Python loop, in the reference's order (block i,
 position j is layer ``i * block_size + j``).
 
-Params: ``{"embed": (V, d), ["lm_head": (d, V)], "final_norm": {...},
-"layers": [{"norm1", "norm2", "attn", "mlp", ["norm1_post", "norm2_post"]},
-...]}``. They come either from the reference's weights
-(``repro_torch.convert.params_from_jax``) or from the port's own seeded
-``init``.
+Params: ``{"embed": (V, d), ["lm_head": (d, V)], ["ln0": {...}],
+"final_norm": {...}, "layers": [...]}``; an attention layer is ``{"norm1",
+"norm2", "attn", "mlp", ["norm1_post", "norm2_post"]}``, an RWKV layer
+``{"norm1", "norm2", "tm", "cm"}`` (time-mix and channel-mix, no MLP), and
+a stack with RWKV layers normalises its embeddings with ``ln0``. Params come
+either from the reference's weights (``repro_torch.convert.params_from_jax``)
+or from the port's own seeded ``init``.
 
 Three modes share one layer body: ``prefill`` (returns per-layer caches),
 ``decode`` (dense cache, one token per row, per-row positions) and
-``decode_paged`` (paged pools + page table). Mamba and RWKV mixers and MoE
-MLPs are not ported and raise.
+``decode_paged`` (paged pools + page table). An RWKV layer's cache is its
+state ``{"shift_tm", "shift_cm", "wkv"}``; it has no position, so it takes
+neither the paged layout nor a bucketed (``true_len``) prefill, and raises
+there as the reference does. Mamba mixers and MoE MLPs are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as F
+from repro_torch.models import rwkv as R
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        init_norm, softcap)
 from repro_torch.models.config import ModelConfig, block_structure
@@ -35,12 +42,13 @@ from repro_torch.models.config import ModelConfig, block_structure
 class DecoderLM:
     def __init__(self, cfg: ModelConfig, *, plain: bool = False):
         """``plain=True`` runs attention through the model-level plain
-        PyTorch math on any device (the yardstick for the kernel path)."""
-        non_attn = sorted(set(cfg.mixer_pattern) - {"attn"})
-        if non_attn:
+        PyTorch math and the WKV scan through its plain version, on any
+        device (the yardstick for the kernel path)."""
+        unported = sorted(set(cfg.mixer_pattern) - {"attn", "rwkv"})
+        if unported:
             raise NotImplementedError(
-                f"{cfg.name}: mixers {non_attn} are not ported yet; the port "
-                f"serves attention-only stacks")
+                f"{cfg.name}: mixers {unported} are not ported yet; the port "
+                f"serves attention and RWKV-6 stacks")
         if cfg.dtype != cfg.param_dtype:
             raise ValueError(f"{cfg.name}: the port computes in the param dtype; "
                              f"dtype={cfg.dtype} != param_dtype={cfg.param_dtype}")
@@ -49,6 +57,15 @@ class DecoderLM:
         self.block_size, self.n_blocks, self.specs = block_structure(cfg)
         self.layer_specs = [self.specs[j] for _ in range(self.n_blocks)
                             for j in range(self.block_size)]
+
+    @property
+    def bucketed_prefill(self) -> bool:
+        """Whether ``prefill`` takes a right-padded prompt with ``true_len``:
+        pure-attention stacks without a bidirectional prefix (a prefix would
+        let pad keys leak into real queries). Other stacks prefill at the
+        prompt's exact length."""
+        return (self.cfg.prefix_len == 0
+                and all(s.mixer == "attn" for s in self.specs))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -70,15 +87,21 @@ class DecoderLM:
         if not (cfg.tie_embeddings and cfg.embed_inputs):
             params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size),
                                            dt, device)
+        if "rwkv" in cfg.mixer_pattern:
+            params["ln0"] = init_norm(cfg, dt, device)
         params["final_norm"] = init_norm(cfg, dt, device)
         layers = []
         for spec in self.layer_specs:
             if spec.is_moe:
                 raise NotImplementedError(f"{cfg.name}: MoE layers are not ported")
             lp = {"norm1": init_norm(cfg, dt, device),
-                  "norm2": init_norm(cfg, dt, device),
-                  "attn": A.init_attention(generator, cfg, dt, device),
-                  "mlp": F.init_mlp(generator, cfg, dt, device)}
+                  "norm2": init_norm(cfg, dt, device)}
+            if spec.mixer == "rwkv":
+                lp["tm"] = R.init_rwkv_tm(generator, cfg, dt, device)
+                lp["cm"] = R.init_rwkv_cm(generator, cfg, dt, device)
+            else:
+                lp["attn"] = A.init_attention(generator, cfg, dt, device)
+                lp["mlp"] = F.init_mlp(generator, cfg, dt, device)
             if cfg.post_norm:
                 lp["norm1_post"] = init_norm(cfg, dt, device)
                 lp["norm2_post"] = init_norm(cfg, dt, device)
@@ -91,6 +114,12 @@ class DecoderLM:
     def _apply_layer(self, lp, x, spec, *, mode, positions=None, cache=None,
                      pos=None, max_len=None, true_len=None, pages=None):
         cfg = self.cfg
+        if spec.mixer != "attn" and (mode == "decode_paged" or true_len is not None):
+            raise NotImplementedError(
+                f"paged decode / bucketed (true_len) prefill support attention "
+                f"layers only, got mixer={spec.mixer!r}; use the dense path")
+        if spec.mixer == "rwkv":
+            return self._apply_rwkv_layer(lp, x, mode=mode, cache=cache)
         h = apply_norm(lp["norm1"], x, cfg)
         if mode == "prefill":
             y, new_cache = A.attn_prefill(lp["attn"], h, cfg, spec, positions,
@@ -111,6 +140,32 @@ class DecoderLM:
             y = apply_norm(lp["norm2_post"], y, cfg)
         return x + y, new_cache
 
+    def _apply_rwkv_layer(self, lp, x, *, mode, cache):
+        """Prefill returns a new state; decode updates ``cache`` in place
+        (the wkv state through the scan's ``state_out``)."""
+        cfg = self.cfg
+        decode = mode != "prefill"
+        h = apply_norm(lp["norm1"], x, cfg)
+        if decode:
+            y, sh_tm, wkv = R.rwkv_time_mix(
+                lp["tm"], h, cfg, cache["shift_tm"], cache["wkv"],
+                state_out=cache["wkv"], plain=self.plain)
+        else:
+            y, sh_tm, wkv = R.rwkv_time_mix(lp["tm"], h, cfg, plain=self.plain)
+        if cfg.post_norm:
+            y = apply_norm(lp["norm1_post"], y, cfg)
+        x = x + y
+        h = apply_norm(lp["norm2"], x, cfg)
+        y, sh_cm = R.rwkv_channel_mix(lp["cm"], h, cfg,
+                                      cache["shift_cm"] if decode else None)
+        if cfg.post_norm:
+            y = apply_norm(lp["norm2_post"], y, cfg)
+        if not decode:
+            return x + y, {"shift_tm": sh_tm, "shift_cm": sh_cm, "wkv": wkv}
+        cache["shift_tm"].copy_(sh_tm)
+        cache["shift_cm"].copy_(sh_cm)
+        return x + y, cache
+
     def _stack(self, params, x, mode, caches=None, **kw):
         new_caches = []
         for i, (lp, spec) in enumerate(zip(params["layers"], self.layer_specs)):
@@ -127,6 +182,8 @@ class DecoderLM:
         x = params["embed"][tokens.long()].to(dt)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+        if "ln0" in params:
+            x = apply_norm(params["ln0"], x, cfg)
         return x
 
     def _unembed(self, params, x):
@@ -141,15 +198,25 @@ class DecoderLM:
     # cache ------------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        """Dense per-layer caches: k/v (batch, L, KV, hd), pos (batch, L)."""
+        """Dense per-layer caches: attention k/v (batch, L, KV, hd) and pos
+        (batch, L); RWKV shift_tm/shift_cm (batch, d) and wkv (batch, H, hd,
+        hd) f32."""
         device = resolve_device(device)
-        return [A.init_cache_entry(self.cfg, spec, batch, max_len, self.dtype,
+        return [R.init_rwkv_cache(self.cfg, batch, self.dtype, device)
+                if spec.mixer == "rwkv" else
+                A.init_cache_entry(self.cfg, spec, batch, max_len, self.dtype,
                                    device) for spec in self.layer_specs]
 
     def init_paged_cache(self, n_phys_blocks: int, block_size: int,
                          quant: Optional[str] = None, device=None):
         """Per-layer paged KV pools (block ids owned by
-        ``repro_torch.runtime.paging.PageAllocator``)."""
+        ``repro_torch.runtime.paging.PageAllocator``). Attention-only
+        stacks: RWKV state is not positional and stays on the dense path."""
+        for spec in self.layer_specs:
+            if spec.mixer != "attn":
+                raise NotImplementedError(
+                    f"paged KV cache supports attention layers only, got "
+                    f"mixer={spec.mixer!r} (use init_cache / the dense layout)")
         device = resolve_device(device)
         return [A.init_paged_entry(self.cfg, spec, n_phys_blocks, block_size,
                                    self.dtype, device, quant=quant)

@@ -24,6 +24,13 @@ Gathering a slot's pages reproduces its dense cache exactly, so both layouts
 generate identical tokens (on the card too: the dense and paged decode
 kernels share one device routine).
 
+A stack with RWKV layers runs dense only (paged raises
+``NotImplementedError``, as in the reference) with one exact-length prefill
+per prompt length. Its slot row holds the recurrent state (``shift_tm``,
+``shift_cm``, ``wkv``), which ``kv_cache_bytes`` counts. Free slots keep
+decoding on stale tokens, which is harmless because admission overwrites
+every entry of the row.
+
 The port has no compiler cache to key; ``prefill_compiles`` counts distinct
 prefill buckets (one entry of ``_prefills`` each), the quantity the
 reference counts as ``batcher.prefill_compiles``.
@@ -158,11 +165,9 @@ class ContinuousBatcher:
         self.kv_layout = kv_layout
         self.kv_block_size = kv_block_size
         cfg = model.cfg
-        # padded-bucket prefill needs pure-attention stacks without a
-        # bidirectional prefix (a prefix would let pad keys leak into real
-        # queries); otherwise one exact-length prefill per prompt length
-        self._bucketed = (cfg.prefix_len == 0
-                          and all(s.mixer == "attn" for s in model.specs))
+        # bucketed prefill where the model takes padded prompts; otherwise
+        # one exact-length prefill per prompt length
+        self._bucketed = model.bucketed_prefill
 
         self.pos = np.zeros(max_slots, np.int64)  # next absolute position
         self.remaining = np.zeros(max_slots, np.int64)
@@ -230,16 +235,18 @@ class ContinuousBatcher:
     def _prefill_fn(self, bucket: int):
         if bucket not in self._prefills:
             self.prefill_compiles += 1
+            # the closures hold the model, not the batcher: a cycle through
+            # self would keep a dropped batcher's caches (and params) alive
+            # until the cyclic collector runs
+            model, max_len = self.model, self.max_len
             if self._bucketed:
                 def prefill(params, toks, true_len):
-                    return self.model.prefill(params, tokens=toks,
-                                              max_len=self.max_len,
-                                              true_len=true_len)
+                    return model.prefill(params, tokens=toks, max_len=max_len,
+                                         true_len=true_len)
             else:
                 def prefill(params, toks, true_len):
                     del true_len  # exact-length fallback
-                    return self.model.prefill(params, tokens=toks,
-                                              max_len=self.max_len)
+                    return model.prefill(params, tokens=toks, max_len=max_len)
             self._prefills[bucket] = prefill
         return self._prefills[bucket]
 
@@ -349,7 +356,7 @@ class ContinuousBatcher:
 
     def kv_cache_bytes(self) -> int:
         """Resident KV-cache bytes of the current layout (pool tensors for
-        paged, the stacked slot caches for dense)."""
+        paged, the stacked slot caches for dense, RWKV state included)."""
         caches = self.pools if self.kv_layout == "paged" else self.cache_slots
         return sum(t.numel() * t.element_size()
                    for entry in caches for t in entry.values())

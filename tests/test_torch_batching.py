@@ -3,12 +3,16 @@
 Greedy tokens of the port (plain PyTorch path) equal the reference's, with
 the reference on its jnp path (``use_pallas=False``) and on its Pallas
 kernels in interpret mode (``use_pallas=True``), for the dense, paged and
-paged-int8 layouts on the starcoder2 and gemma2 smoke configs. Also: port
-dense == port paged; the decode_scale capacity claim (8 resident paged slots
+paged-int8 layouts on the starcoder2 and gemma2 smoke configs, and for the
+dense layout on the rwkv6-3b smoke config (whose paged layouts raise in both
+batchers). Also: port dense == port paged; RWKV state bytes; the decode_scale capacity claim (8 resident paged slots
 vs 2 dense at an 8-block budget); the int8 pool bytes ratio; the
 prefill-bucket count; the port's copy of ``PageAllocator``; the default
 device.
 """
+
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -31,6 +35,9 @@ from repro_torch.runtime.paging import (NULL_BLOCK, TRASH_BLOCK,  # noqa: E402
 
 # (prompt length, max_new): mixed lengths across the 16/32/64 buckets
 SHAPES = [(8, 6), (5, 9), (12, 7), (15, 5), (3, 12), (40, 6)]
+# RWKV: exact-length prefill, 64 on the reference's Pallas scan, 37 off it
+RWKV_SHAPES = [(5, 6), (64, 6), (37, 6), (128, 6)]
+RWKV_MAX_LEN = 160
 LAYOUTS = {"dense": dict(kv_layout="dense"), "paged": dict(kv_layout="paged"),
            "int8": dict(kv_layout="paged", kv_quant="int8")}
 _CACHE = {}
@@ -78,23 +85,45 @@ def _run_port(arch, layout, shapes=SHAPES, **kw):
 
 @pytest.mark.parametrize("use_pallas", [False, True], ids=["jnp", "pallas"])
 @pytest.mark.parametrize("layout", list(LAYOUTS))
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma2-2b", "rwkv6-3b"])
 def test_port_tokens_match_reference_batcher(arch, layout, use_pallas):
     model, params = _reference(arch, use_pallas)
-    jb = JBatcher(model, params, max_slots=2, max_len=64, **LAYOUTS[layout])
+    rwkv = arch == "rwkv6-3b"
+    shapes, max_len = (RWKV_SHAPES, RWKV_MAX_LEN) if rwkv else (SHAPES, 64)
+    if rwkv and layout != "dense":  # RWKV state is not paged, in either batcher
+        with pytest.raises(NotImplementedError):
+            JBatcher(model, params, max_slots=2, max_len=max_len, **LAYOUTS[layout])
+        with pytest.raises(NotImplementedError):
+            _run_port(arch, layout, shapes, max_len=max_len)
+        return
+    jb = JBatcher(model, params, max_slots=2, max_len=max_len, **LAYOUTS[layout])
     jreqs = [JRequest(i, p, m) for i, (p, m) in
-             enumerate(_prompts(model.cfg.vocab_size))]
+             enumerate(_prompts(model.cfg.vocab_size, shapes))]
     for r in jreqs:
         jb.submit(r)
     jb.run()
     reset_counts()
-    _, tokens = _run_port(arch, layout)
+    _, tokens = _run_port(arch, layout, shapes, max_len=max_len)
     assert tokens == [r.tokens for r in jreqs]
-    # on the CPU every attention call ran a plain version, no kernel
+    # on the CPU every kernel op ran its plain version, no kernel
     assert sum(LAUNCHES.values()) == 0
+    if rwkv:
+        assert PLAIN_CALLS["rwkv6_scan"] > 0
+        return
     assert PLAIN_CALLS["flash_attention"] > 0
     name = "decode_attention" if layout == "dense" else "paged_decode_attention"
     assert PLAIN_CALLS[name] > 0
+
+
+def test_rwkv_state_bytes_equal_reference():
+    """Dense RWKV slots hold (shift_tm, shift_cm, wkv) per layer: 2 slots x
+    2 layers x (2 x 128 + 4 x 32 x 32) f32 = 69632 bytes in both batchers."""
+    jmodel, jparams = _reference("rwkv6-3b", False)
+    model, params = _port("rwkv6-3b")
+    jb = JBatcher(jmodel, jparams, max_slots=2, max_len=RWKV_MAX_LEN)
+    b = ContinuousBatcher(model, params, max_slots=2, max_len=RWKV_MAX_LEN,
+                          device="cpu")
+    assert b.kv_cache_bytes() == jb.kv_cache_bytes() == 69632
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma2-2b"])
@@ -203,6 +232,24 @@ def test_page_allocator_copy_conservation_random_walk():
     alloc.check_conservation()
     assert (alloc.table == TRASH_BLOCK).all()
     assert pages_needed(8, 9, 64, 16) == 2 and pages_needed(60, 100, 64, 16) == 4
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "rwkv6-3b"])
+def test_dropped_batcher_is_freed_without_the_cycle_collector(arch):
+    """Nothing the batcher builds (its prefill closures included) refers
+    back to it, so dropping it frees its caches at once."""
+    model, params = _port(arch)
+    b = ContinuousBatcher(model, params, max_slots=2, max_len=64, device="cpu")
+    b.submit(GenRequest(0, np.arange(1, 9, dtype=np.int32), 3))
+    b.run()
+    assert b._prefills
+    ref = weakref.ref(b)
+    gc.disable()
+    try:
+        del b
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 def test_batcher_defaults_to_cuda():

@@ -1,6 +1,7 @@
 """Port kernels on the card: each hand-written CUDA kernel against its plain
 PyTorch version on the same CUDA inputs, at the reference's tolerances
-(atol 2e-5 for f32 and int8-dequantised pools, 2e-2 for bf16).
+(attention: atol 2e-5 for f32 and int8-dequantised pools, 2e-2 for bf16;
+the RWKV-6 scan: atol = rtol = 1e-3, its inputs widened to f32 exactly).
 
 Needs a CUDA device and ``nvcc``; the ``cuda`` fixture skips every test here
 otherwise (decided inside the fixture, never at import, so every xdist
@@ -21,6 +22,9 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_fwd
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.optim.compress import quantize_int8
 
 pytestmark = pytest.mark.gpu
@@ -176,3 +180,134 @@ def test_kernels_refuse_unsupported_head_dim(cuda):
         flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError, match="head_dim"):
         decode_attention_fwd(q[:, :, 0], q, q, torch.zeros(8, device=cuda))
+
+
+# ------------------------------------------------------------ RWKV-6 scan (B5)
+
+WKV_TOL = 1e-3
+
+
+def _wkv_case(gen, dev, dtype, B, H, S, hd, *, model_layout=False):
+    """r/k/v in ``dtype``, w in (0.2, 0.999), nonzero u and s0, all f32 but
+    r/k/v. ``model_layout``: (B,H,S,hd) views of (B,S,H,hd) storage, as the
+    model passes its projections."""
+    def seq(scale=1.0, shift=0.0, rand=torch.randn):
+        shape = (B, S, H, hd) if model_layout else (B, H, S, hd)
+        t = rand(shape, generator=gen, device=dev) * scale + shift
+        return t.transpose(1, 2) if model_layout else t
+
+    r, k, v = (seq().to(dtype) for _ in range(3))
+    w = seq(0.799, 0.2, torch.rand)
+    u = torch.randn((H, hd), generator=gen, device=dev)
+    s0 = 0.5 * torch.randn((B, H, hd, hd), generator=gen, device=dev)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S", [1, 37, 64, 130])
+def test_rwkv6_kernel_matches_plain(cuda, dtype, hd, S):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    args = _wkv_case(gen, cuda, dtype, 3, 5, S, hd)
+    reset_counts()
+    y, sT = rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rwkv6_scan"] == 1 and PLAIN_CALLS["rwkv6_scan"] == 0
+    y_ref, sT_ref = rwkv6_scan_ref(*args)
+    assert y.shape == (3, 5, S, hd) and y.dtype == sT.dtype == torch.float32
+    torch.testing.assert_close(y, y_ref, atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(sT, sT_ref, atol=WKV_TOL, rtol=WKV_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rwkv6_kernel_reads_model_layout_views(cuda, dtype):
+    """(B,H,S,hd) views of (B,S,H,hd) storage, read without a copy; y comes
+    back as such a view too."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    args = _wkv_case(gen, cuda, dtype, 2, 40, 100, 64, model_layout=True)
+    y, sT = rwkv6_scan_fwd(*args)
+    assert y.transpose(1, 2).is_contiguous()
+    y_ref, sT_ref = rwkv6_scan_ref(*(a.contiguous() for a in args))
+    torch.testing.assert_close(y, y_ref, atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(sT, sT_ref, atol=WKV_TOL, rtol=WKV_TOL)
+
+
+def test_rwkv6_kernel_chained_calls_equal_one_call(cuda):
+    """Two calls with the state carried equal one call over the whole
+    sequence: the same per-column arithmetic, only the split differs."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    r, k, v, w, u, s0 = _wkv_case(gen, cuda, torch.bfloat16, 2, 4, 150, 64)
+    y, sT = rwkv6_scan_fwd(r, k, v, w, u, s0)
+    h = 70
+    y1, s1 = rwkv6_scan_fwd(r[:, :, :h], k[:, :, :h], v[:, :, :h], w[:, :, :h], u, s0)
+    y2, s2 = rwkv6_scan_fwd(r[:, :, h:], k[:, :, h:], v[:, :, h:], w[:, :, h:], u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], 2), y, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(s2, sT, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("S", [1, 37])
+def test_rwkv6_kernel_in_place_state_equals_out_of_place(cuda, S):
+    """``state_out=s0`` (a decode step updating its cache) gives the
+    out-of-place result bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    r, k, v, w, u, s0 = _wkv_case(gen, cuda, torch.bfloat16, 4, 40, S, 64)
+    y, sT = rwkv6_scan_fwd(r, k, v, w, u, s0)
+    state = s0.clone()
+    y2, sT2 = rwkv6_scan_fwd(r, k, v, w, u, state, state_out=state)
+    assert sT2 is state
+    assert torch.equal(y2, y) and torch.equal(state, sT)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rwkv6_kernel_bitwise_independent_of_column_split(cuda, dtype):
+    """The reduction over k has a fixed order per column, so the value
+    columns per CTA (the wrapper's ``_cols`` hook) do not change a bit."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    args = _wkv_case(gen, cuda, dtype, 2, 3, 77, 64)
+    y16, s16 = rwkv6_scan_fwd(*args)
+    for cols in (4, 8, 32, 64):
+        y, s = rwkv6_scan_fwd(*args, _cols=cols)
+        assert torch.equal(y, y16) and torch.equal(s, s16), cols
+
+
+def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    r, k, v, w, u, s0 = _wkv_case(gen, cuda, torch.float32, 1, 2, 8, 64)
+    with pytest.raises(ValueError, match="cols"):
+        rwkv6_scan_fwd(r, k, v, w, u, s0, _cols=6)
+    with pytest.raises(TypeError):
+        rwkv6_scan_fwd(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="s0"):
+        rwkv6_scan_fwd(r, k, v, w, u, s0.transpose(2, 3))
+    q = torch.zeros(1, 2, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        rwkv6_scan_fwd(q, q, q, q, torch.zeros(2, 48, device=cuda),
+                       torch.zeros(1, 2, 48, 48, device=cuda))
+
+
+def test_rwkv_decoder_kernel_path_matches_plain_path(cuda):
+    """rwkv6-3b smoke config in f32 on the card: prefill (S=37) and three
+    decode steps, kernel path against the plain path, within 2e-4 of
+    max |logit| (the two differ only in the scan's summation order)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+
+    cfg = smoke_config("rwkv6-3b")
+    kern, plain = build_model(cfg), build_model(cfg, plain=True)
+    params = kern.init(torch.Generator(device=cuda).manual_seed(12), device=cuda)
+    toks = torch.randint(1, cfg.vocab_size, (2, 37), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(13))
+    reset_counts()
+    with torch.inference_mode():
+        lk, ck = kern.prefill(params, tokens=toks)
+        lp, cp = plain.prefill(params, tokens=toks)
+        for step in range(4):
+            scale = lp.abs().max()
+            assert (lk - lp).abs().max() <= 2e-4 * scale, step
+            if step == 3:
+                break
+            tok = torch.argmax(lp, -1)[:, None]
+            lk, ck = kern.decode_step(params, ck, tokens=tok, pos=37 + step)
+            lp, cp = plain.decode_step(params, cp, tokens=tok, pos=37 + step)
+    assert LAUNCHES["rwkv6_scan"] == 4 * cfg.num_layers
+    assert PLAIN_CALLS["rwkv6_scan"] == 4 * cfg.num_layers

@@ -40,6 +40,9 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     FlashParams, flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.kernel import (  # noqa: E402
+    Rwkv6Params, rwkv6_scan_fwd)
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
 from repro_torch.optim.compress import dequantize_int8, quantize_int8  # noqa: E402
 
 NEG_INF = -2.3819763e38
@@ -224,15 +227,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    torch.zeros(1, 16))
     with pytest.raises(ValueError):
         flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    r = torch.zeros(1, 2, 16, 32)
+    with pytest.raises(ValueError):
+        rwkv6_scan_fwd(r, r, r, r, torch.zeros(2, 32), torch.zeros(1, 2, 32, 32))
+    m = r.to("meta")
+    with pytest.raises(ValueError):
+        rwkv6_scan(m, m, m, m, torch.zeros(2, 32).to("meta"),
+                   torch.zeros(1, 2, 32, 32).to("meta"))
 
 
-_CTYPE_SIZES = {"const void*": 8, "void*": 8, "const float*": 8,
+_CTYPE_SIZES = {"const void*": 8, "void*": 8, "const float*": 8, "float*": 8,
                 "const int32_t*": 8, "int64_t": 8, "int32_t": 4, "float": 4}
 
 
 @pytest.mark.parametrize("src,struct,mirror", [
     ("flash_attention.cu", "FlashParams", FlashParams),
     ("decode_attention.cu", "DecodeParams", DecodeParams),
+    ("rwkv6_scan.cu", "Rwkv6Params", Rwkv6Params),
 ])
 def test_ctypes_struct_mirrors_cuda_source(src, struct, mirror):
     """The C entries take a pointer to a parameter struct; its ctypes mirror

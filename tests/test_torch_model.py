@@ -43,7 +43,7 @@ def _close(t, j, atol=TOL):
                                atol=atol, rtol=atol)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-3b"])
 def test_config_copies_equal_reference(arch):
     """The port keeps its own copies of ModelConfig / the arch configs /
     smoke_config; they equal the reference field for field."""
