@@ -30,7 +30,30 @@ checkout of the repository. Phases (none catches its own failure):
 4. f32 model check — starcoder2-3b, then rwkv6-3b, full width in f32:
    prefill logits of a 513-token prompt and the 4 dense decode steps after
    it, kernel path against the plain path on the card, within 2e-4 of
-   max |logit|.
+   max |logit|;
+5. training — full-width rwkv6-3b in bf16 through ``ElasticTrainer``:
+   global batch 4 x 2048 tokens in the config's 2 microbatches, remat
+   "full", 3 steps at a constant learning rate, a revocation before step 1
+   (blocking checkpoint of the whole state, 31 GB, to a temporary
+   directory, the state released, restored onto the card; the run's
+   closing checkpoint is not written, so the run writes one state to
+   disk). Counts zeroed before the run:
+   3 x 2 x 32 x 2 = 384 scan launches (forward and remat recompute), 192
+   backward launches, no plain call; finite losses; step time, tokens/s,
+   peak memory and the device's busy share of one step;
+6. f32 gradient check — full-width rwkv6-3b in f32, one 130-token sequence
+   (a ragged last checkpoint chunk), within 2e-4 of each output's max:
+   at full depth, every layer's B5 and B7 outputs on that layer's own
+   inputs and incoming gradient against the plain versions; at depth 1,
+   every parameter leaf, kernel path against plain path. Every leaf at
+   full depth is printed beside the same gap with no kernel involved
+   (``grad_phase`` says why it is not held).
+
+Phase 2 also holds the scan's backward (B7) against its plain version at
+the training microbatch (B=2, H=40, S=2048, hd=64, bf16 r/k/v in the
+model's layout), in f32 and at ragged S = 37 and 130, with nonzero s0 and
+dsT; tolerance atol = rtol = 1e-4 for f32 outputs, 2e-2 for bf16 ones (the
+reference's backward and bf16 tolerances), and two runs bitwise equal.
 
 TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN). The
 last lines are the kernel table (JSON), the card's name and power limit, and
@@ -42,8 +65,10 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -55,6 +80,11 @@ ARCH = "starcoder2-3b"
 RWKV_ARCH = "rwkv6-3b"
 PROMPT_LENS = (17, 100, 513, 1000, 2047, 4500, 31, 250)
 MAX_NEW = 24
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # backward outputs, by dtype
+DEPTH_RATIO = 4               # full-depth leaf: kernel path's distance from the
+                              # f64-scan path over the plain f32 path's
+REF_CHUNK = 64                # the TPU scan's default chunk (B5/B7)
 
 
 def log(*a):
@@ -91,6 +121,14 @@ def bound(n_bytes, flops, dtype_name):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ref_chunk_bytes(B, H, S, row_floats):
+    """f32 bytes of one row of ``row_floats`` per (b, h) and 64-step chunk:
+    the chunk-start states and du partials that the replaced TPU scan keeps
+    at its default chunk. The port's 8-step checkpoints are its own design,
+    so a bound counts them at the reference's interval."""
+    return B * H * -(-S // REF_CHUNK) * row_floats * 4
 
 
 def flash_pairs(S, window):
@@ -359,14 +397,109 @@ def rwkv_kernel_phase(dev):
     y_ref, sT_ref = rwkv6_scan_ref(*args)
     _check("rwkv6 f32 prefill S=513 y", y, y_ref, tol)
     _check("rwkv6 f32 prefill S=513 sT", sT, sT_ref, tol)
+    del args, y, sT, y_ref, sT_ref
+
+    # training forward: the microbatch shape, with the chunk-start states
+    B, S = 2, TRAIN_SEQ
+    args = case(B, S, bf16)
+    y, sT, starts = rwkv6_scan_fwd(*args, save_states=True)
+    _, _, starts_ref = rwkv6_scan_ref(*args, save_states=True)
+    _check(f"rwkv6 bf16 save_states B={B} S={S} starts", starts, starts_ref, tol)
+    train_bound = bound(nbytes(*args, y, sT) + ref_chunk_bytes(B, H, S, hd * hd),
+                        flops(B, S), "float32")
+    row.update(
+        train_ms=time_ms(lambda: rwkv6_scan_fwd(*args, save_states=True), 10),
+        train_bound_ms=train_bound["bound_ms"],
+        train_bound_by=train_bound["bound_by"],
+        train_shape=f"B={B} H={H} S={S} hd={hd} save_states, r/k/v bf16")
+    extra = nbytes(starts) - ref_chunk_bytes(B, H, S, hd * hd)
+    log(f"  rwkv6 with save_states (B={B}, S={S}): ms={row['train_ms']:.4f} "
+        f"bound_ms={row['train_bound_ms']:.4f} ({row['train_bound_by']}, "
+        f"checkpoints at the reference's {REF_CHUNK}-step chunk); the port's "
+        f"8-step checkpoints write {extra / 1e6:.1f} MB more "
+        f"({1e3 * extra / HBM_BYTES_PER_S:.4f} ms at the memory rate)")
     log(f"  rwkv6 prefill ms={row['ms']:.4f} plain_ms={row['plain_ms']:.2f} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); decode device "
         f"ms={row['decode_ms']:.5f} (profiler) issue ms={row['decode_issue_ms']:.4f} "
         f"(events, back-to-back wrapper calls) plain_ms={row['decode_plain_ms']:.4f} "
         f"bound_ms={row['decode_bound_ms']:.5f}; library: none")
-    del args, y, sT, y_ref, sT_ref
+    del args, y, sT, starts, starts_ref
     torch.cuda.empty_cache()
     return {"rwkv6_scan": row}
+
+
+def rwkv_bwd_kernel_phase(dev):
+    """B7 at the training microbatch of rwkv6-3b (B=2, H=40, S=2048, hd=64):
+    r/k/v bf16 and dy f32 as (B,H,S,hd) views of (B,S,H,hd) storage, w/u f32,
+    nonzero s0 and dsT, the checkpoints from B5's save_states. Then f32 and
+    ragged S = 37 and 130, and two runs bitwise equal."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd, rwkv6_scan_fwd
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5432)
+    H, hd = 40, 64
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+    def case(B, S, dtype):
+        def seq(rand=torch.randn, scale=1.0, shift=0.0):
+            t = rand((B, S, H, hd), generator=gen, device=dev) * scale + shift
+            return t.transpose(1, 2)
+
+        r, k, v = (seq().to(dtype) for _ in range(3))
+        w = seq(torch.rand, 0.799, 0.2)
+        u = torch.randn((H, hd), generator=gen, device=dev)
+        s0 = 0.5 * torch.randn((B, H, hd, hd), generator=gen, device=dev)
+        dy = seq()
+        dsT = 0.5 * torch.randn((B, H, hd, hd), generator=gen, device=dev)
+        _, _, starts = rwkv6_scan_fwd(r, k, v, w, u, s0, save_states=True)
+        return (r, k, v, w, dy, u, starts, dsT)
+
+    def check(label, args):
+        got = rwkv6_scan_bwd(*args)
+        ref = rwkv6_scan_bwd_ref(*args)
+        return got, max(_check(f"{label} {n}", a, b, BWD_TOL[str(a.dtype)[6:]])
+                        for n, a, b in zip(names, got, ref))
+
+    def flops(B, S):
+        # per state element and step: replay (mul + FMA), dr, dk, dw, dv (an
+        # FMA each), the G update (mul + FMA): 14; per row ~15 for the bonus
+        # and du terms
+        return B * H * S * (14 * hd * hd + 15 * hd)
+
+    log("kernel phase: rwkv6_scan_bwd (B7)")
+    B, S = 2, TRAIN_SEQ
+    args = case(B, S, torch.bfloat16)
+    got, err = check(f"rwkv6 bwd bf16 B={B} H={H} S={S}", args)
+    r, k, v, w, dy, u, starts, dsT = args
+    dr, dk, dv, dw, du, ds0 = got
+    again = rwkv6_scan_bwd(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("rwkv6 bwd: two runs differ")
+    log("  rwkv6 bwd: two runs bitwise equal")
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: rwkv6_scan_bwd(*args), 10),
+        plain_ms=time_ms(lambda: rwkv6_scan_bwd_ref(*args), 1, warmup=1),
+        library_ms=None,  # no single PyTorch call computes the WKV backward
+        # the checkpoints read and the du partials written are counted at
+        # the reference's 64-step chunk, not at the port's 8 steps
+        **bound(nbytes(r, k, v, w, dy, u, dsT, dr, dk, dv, dw, ds0)
+                + ref_chunk_bytes(B, H, S, hd * hd + hd), flops(B, S), "float32"),
+        shape=f"B={B} H={H} S={S} hd={hd}, r/k/v/dr/dk/dv bf16, w/dy/u/states f32, "
+              f"checkpoints every 8 steps")
+    extra = nbytes(starts, du) - ref_chunk_bytes(B, H, S, hd * hd + hd)
+    log(f"  rwkv6 bwd ms={row['ms']:.4f} plain_ms={row['plain_ms']:.2f} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); library: none; the "
+        f"port's 8-step checkpoints and du partials read and write "
+        f"{extra / 1e6:.1f} MB more ({1e3 * extra / HBM_BYTES_PER_S:.4f} ms)")
+    del args, got, again, r, k, v, w, dy, u, starts, dsT, dr, dk, dv, dw, du, ds0
+    for dtype, S in ((torch.float32, 130), (torch.float32, 37), (torch.bfloat16, 37)):
+        _, e = check(f"rwkv6 bwd {str(dtype)[6:]} B=2 S={S}", case(2, S, dtype))
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+    torch.cuda.empty_cache()
+    return {"rwkv6_scan_bwd": row}
 
 
 def kernel_device_ms(fn, n, kernel):
@@ -623,6 +756,286 @@ def f32_phase(dev, seed, arch):
 
 
 # --------------------------------------------------------------------------
+# phase 5: full-width training through ElasticTrainer
+
+
+def train_phase(dev, seed):
+    """rwkv6-3b, bf16, global batch TRAIN_BATCH x TRAIN_SEQ in the config's
+    microbatches, remat as configured ("full"), TRAIN_STEPS steps, one
+    revocation before step 1; the counts zeroed just before the run and
+    read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant_schedule
+    from repro_torch.runtime.elastic import ElasticTrainer
+
+    class OnceCheckpointer(Checkpointer):
+        """Writes the revocation's checkpoint and no later one: a full-width
+        state is 31 GB, and this run keeps its disk writes to one state.
+        The closing save of ``ElasticTrainer.run`` is logged, not written."""
+
+        def save(self, step, state, *, blocking=False):
+            if self.all_steps():
+                log(f"  checkpoint at step {step} not written (one per smoke run)")
+                return
+            t0 = time.perf_counter()
+            super().save(step, state, blocking=blocking)
+            self.wait()
+            size = sum(f.stat().st_size for f in self.dir.rglob("*") if f.is_file())
+            log(f"  checkpoint at step {step}: {size} bytes in "
+                f"{time.perf_counter() - t0:.1f} s")
+
+    class TimedTrainer(ElasticTrainer):
+        """Synchronised wall clock per train step and per revocation."""
+
+        def __init__(self, *a, **kw):
+            self.step_ms, self.rescale_ms = [], []
+            super().__init__(*a, **kw)
+
+        def _build(self, devices):
+            super()._build(devices)
+            inner = self.step_fn
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(state, batch)
+                torch.cuda.synchronize()
+                self.step_ms.append(1e3 * (time.perf_counter() - t0))
+                return out
+
+            self.step_fn = timed
+
+        def rescale(self, devices, step, state):
+            t0 = time.perf_counter()
+            state = super().rescale(devices, step, state)
+            torch.cuda.synchronize()
+            self.rescale_ms.append(1e3 * (time.perf_counter() - t0))
+            return state
+
+    cfg = get_config(RWKV_ARCH)
+    M, L = cfg.num_microbatches, cfg.num_layers
+    log(f"train phase: {RWKV_ARCH} full width {cfg.dtype}, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in {M} microbatches, remat={cfg.remat}, {TRAIN_STEPS} steps, "
+        f"revocation before step 1")
+    model = DecoderLM(cfg)
+    opt = AdamW(lr=constant_schedule(1e-4), moments_dtype=cfg.opt_moments_dtype)
+    data = SyntheticBatches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        free = shutil.disk_usage(ckdir).free
+        log(f"  checkpoints to a temporary directory, {free / 1e9:.1f} GB free")
+        trainer = TimedTrainer(model, opt, data, OnceCheckpointer(ckdir, keep=1),
+                               devices=[dev], log=lambda m: log(f"  {m}"))
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = trainer.run(TRAIN_STEPS, seed=seed, preempt_at={1: 1},
+                            checkpoint_every=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+        peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h[1] for h in trainer.history]
+    if [h[0] for h in trainer.history] != list(range(TRAIN_STEPS)) or trainer.rescales != 1:
+        raise AssertionError(f"train: history {trainer.history}, rescales {trainer.rescales}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite losses {losses}")
+    want = {"rwkv6_scan": TRAIN_STEPS * M * L * 2, "rwkv6_scan_bwd": TRAIN_STEPS * M * L}
+    got = {k: counts[k] for k in want}
+    if got != want or sum(plain.values()):
+        raise AssertionError(f"train: launches {got} (want {want}), plain calls {plain}")
+    steps_ms = list(trainer.step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    summary = dict(
+        losses=losses, step_ms=steps_ms,
+        tokens_per_s=[tokens / (ms / 1e3) for ms in steps_ms],
+        revocation_ms=trainer.rescale_ms[0],
+        run_overhead_ms=1e3 * wall - sum(steps_ms)
+        - trainer.rescale_ms[0],
+        max_memory_allocated=peak, launches=got, plain_calls=0)
+    log(f"  {json.dumps(summary)}")
+    batch = data.batch(TRAIN_STEPS)
+    prof = decode_profile(lambda: trainer.step_fn(state, batch), n=1)
+    log(f"  train step profile: "
+        f"{json.dumps(prof) if prof else 'not measured (no device time recorded)'}")
+    summary["profile"] = prof
+    del state, trainer, opt
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+# --------------------------------------------------------------------------
+# phase 6: full-width f32 gradients, kernel path vs plain path
+
+
+def _leaf_gaps(paths, got, ref):
+    """(max|got - ref| / max|ref|, leaf) per leaf, worst first."""
+    from repro_torch.tree import key
+
+    out = []
+    for path, a, b in zip(paths, got, ref):
+        scale = b.abs().max().item()
+        diff = (a - b).abs().max().item()
+        out.append((diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf")),
+                    key(path)))
+    return sorted(out, reverse=True)
+
+
+def grad_phase(dev, seed):
+    """f32 gradients at full width, one 130-token sequence:
+
+    (a) full depth (32 layers): every layer's scan as the kernel path ran
+        it, B5 (with its checkpoints) and B7, against the plain versions on
+        that layer's own inputs and incoming gradient, within 2e-4 of each
+        output's max |value|;
+    (b) every parameter leaf, kernel path against plain path, at depth 1,
+        within 2e-4 of each leaf's max |grad|;
+    (c) every parameter leaf at full depth, against the plain path with its
+        scan in float64, which rounds least. At this random init the model's gradient
+        is ill-conditioned in depth: the f32 rounding of one layer's scan
+        grows through the 32 layers until most leaves of any two f32 paths
+        differ by 1e-2 or more, so 2e-4 between the kernel and plain paths
+        cannot hold. Each leaf of the kernel path is held instead to within
+        DEPTH_RATIO times the plain f32 path's own distance from that path
+        (or 2e-4, where that is larger). The two f32 distances are two draws
+        of the same amplified rounding, so their ratio spreads from leaf to
+        leaf (up to ~3 at this seed); a fault that shows only in depth, such
+        as a gradient wired to the wrong layer or a wrong recompute, moves a
+        leaf by O(1) of its max, far beyond that."""
+    import torch
+
+    import repro_torch.models.rwkv as R
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import LAUNCHES, reset_counts
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd, rwkv6_scan_fwd
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.tree import leaves_with_paths, unflatten
+
+    S = 130
+    cfg = get_config(RWKV_ARCH).replace(dtype="float32", param_dtype="float32")
+    tokens = torch.as_tensor(SyntheticBatches(cfg, 1, S, seed=seed).batch(0)["tokens"],
+                             device=dev)
+
+    def scan64(r, k, v, w, u, s0, **kw):
+        y, sT = rwkv6_scan_ref(*(t.double() for t in (r, k, v, w, u, s0)))
+        return y.float(), sT.float()
+
+    def grads(model, params, scan_ref=None, sink=None):
+        """Gradients of every leaf; ``scan_ref`` replaces the plain scan,
+        ``sink`` collects each kernel-path scan's inputs and dL/dy."""
+        def tap(r, k, v, w, u, s0, **kw):
+            y, sT = originals[0](r, k, v, w, u, s0, **kw)
+            if y.requires_grad:  # the remat recompute's y gets no gradient
+                entry = {"in": [t.detach() for t in (r, k, v, w, u, s0)]}
+                y.register_hook(lambda g, e=entry: e.update(dy=g.detach()))
+                sink.append(entry)
+            return y, sT
+
+        flat = [leaf for _, leaf in leaves_with_paths(params)]
+        live = [p.requires_grad_(True) for p in flat]
+        originals = (R.rwkv6_scan, R.rwkv6_scan_ref)
+        if sink is not None:
+            R.rwkv6_scan = tap
+        if scan_ref is not None:
+            R.rwkv6_scan_ref = scan_ref
+        try:
+            reset_counts()
+            loss, _ = model.loss(unflatten(params, live), {"tokens": tokens})
+            out = torch.autograd.grad(loss, live)
+        finally:
+            R.rwkv6_scan, R.rwkv6_scan_ref = originals
+        want = 0 if model.plain else model.cfg.num_layers
+        if LAUNCHES["rwkv6_scan_bwd"] != want:
+            raise AssertionError(f"grad phase: {LAUNCHES['rwkv6_scan_bwd']} backward "
+                                 f"launches (want {want})")
+        return loss.item(), out
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    # (a) full depth, every layer's scan in place
+    log(f"grad phase: {RWKV_ARCH} full width in float32, one sequence of {S} tokens, "
+        f"remat={cfg.remat}")
+    kern, plain = DecoderLM(cfg), DecoderLM(cfg, plain=True)
+    params = kern.init(torch.Generator(device=dev).manual_seed(seed + 2), device=dev)
+    paths = [path for path, _ in leaves_with_paths(params)]
+    taps = []
+    loss_k, g_k = grads(kern, params, sink=taps)
+    taps = [e for e in taps if "dy" in e]
+    if len(taps) != cfg.num_layers:
+        raise AssertionError(f"grad phase: {len(taps)} scans tapped")
+    names = ("y", "dr", "dk", "dv", "dw", "du", "ds0")
+    worst_in_place = dict.fromkeys(names, 0.0)
+    for entry in taps:
+        r, k, v, w, u, s0 = entry["in"]
+        dy, dsT = entry["dy"].float().contiguous(), torch.zeros_like(s0)
+        y_k, _, st_k = rwkv6_scan_fwd(r, k, v, w, u, s0, save_states=True)
+        y_p, _, st_p = rwkv6_scan_ref(r, k, v, w, u, s0, save_states=True)
+        got = (y_k, *rwkv6_scan_bwd(r, k, v, w, dy, u, st_k, dsT))
+        ref = (y_p, *rwkv6_scan_bwd_ref(r, k, v, w, dy, u, st_p, dsT))
+        for name, a, b in zip(names, got, ref):
+            if name == "du":
+                a, b = a.sum(dim=(0, 2)), b.sum(dim=(0, 2))
+            worst_in_place[name] = max(worst_in_place[name], rel(a, b))
+    log(f"  (a) {len(taps)} layers in place, B5/B7 vs plain, worst of max: "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in worst_in_place.items()}))
+    del taps
+    loss_p, g_p = grads(plain, params)
+    _, g_64 = grads(plain, params, scan_ref=scan64)
+    gap, floor, off = (_leaf_gaps(paths, a, b)
+                       for a, b in ((g_k, g_p), (g_p, g_64), (g_k, g_64)))
+    del g_k, g_p, g_64, params
+    torch.cuda.empty_cache()
+    plain_off = {leaf: g for g, leaf in floor}
+    ratio = sorted(((g / max(DEPTH_RATIO * plain_off[leaf], LOGIT_RTOL), g,
+                     plain_off[leaf], leaf) for g, leaf in off), reverse=True)
+
+    def over(gaps):
+        return f"{sum(g > LOGIT_RTOL for g, _ in gaps)} of {len(gaps)} leaves over {LOGIT_RTOL}"
+
+    log(f"  (c) every leaf at full depth: loss kernel {loss_k:.6f} plain {loss_p:.6f}; "
+        f"kernel vs plain worst {gap[0][0]:.3e} ({gap[0][1]}), {over(gap)}; from the "
+        f"f64-scan path: kernel worst {off[0][0]:.3e} ({off[0][1]}), plain f32 worst "
+        f"{floor[0][0]:.3e} ({floor[0][1]}), {over(floor)}; kernel's distance over "
+        f"max({DEPTH_RATIO} x plain's, {LOGIT_RTOL}), worst {ratio[0][0]:.3f} ({ratio[0][3]}: "
+        f"{ratio[0][1]:.3e} vs {ratio[0][2]:.3e}), {sum(q > 1 for q, *_ in ratio)} "
+        f"of {len(ratio)} leaves over 1")
+
+    # (b) every leaf at depth 1
+    cfg1 = cfg.replace(num_layers=1)
+    kern, plain = DecoderLM(cfg1), DecoderLM(cfg1, plain=True)
+    params = kern.init(torch.Generator(device=dev).manual_seed(seed + 3), device=dev)
+    paths = [path for path, _ in leaves_with_paths(params)]
+    _, g_k = grads(kern, params)
+    _, g_p = grads(plain, params)
+    _, g_64 = grads(plain, params, scan_ref=scan64)
+    gap1, floor1 = _leaf_gaps(paths, g_k, g_p), _leaf_gaps(paths, g_p, g_64)
+    log(f"  (b) every leaf at depth 1: kernel vs plain worst {gap1[0][0]:.3e} "
+        f"({gap1[0][1]}); plain vs plain with an f64 scan worst {floor1[0][0]:.3e}")
+    del params, g_k, g_p, g_64
+    torch.cuda.empty_cache()
+    worst = max(max(worst_in_place.values()), gap1[0][0])
+    if not worst <= LOGIT_RTOL:
+        raise AssertionError(f"f32 gradients, kernel vs plain: {worst} > {LOGIT_RTOL}: "
+                             f"in place {worst_in_place}, depth 1 {gap1[:3]}")
+    if not ratio[0][0] <= 1:
+        raise AssertionError(f"f32 gradients at full depth: the kernel path is farther "
+                             f"from the f64-scan path than {DEPTH_RATIO} x the plain path: "
+                             f"{ratio[:5]}")
+    return worst, ratio[0][0]
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -661,11 +1074,19 @@ def main(argv=None):
 
     rows = kernel_phase(dev)
     rows.update(rwkv_kernel_phase(dev))
+    rows.update(rwkv_bwd_kernel_phase(dev))
     launches, _ = serving_phase(dev, args.seed, ARCH, STARCODER_LAYOUTS)
+    by_path = {"serving": dict(launches)}
     rwkv_launches, _ = serving_phase(dev, args.seed, RWKV_ARCH, RWKV_LAYOUTS)
     for name, n in rwkv_launches.items():
         launches[name] += n
+        by_path["serving"][name] += n
     worst = max(f32_phase(dev, args.seed, ARCH), f32_phase(dev, args.seed, RWKV_ARCH))
+    train_launches, _ = train_phase(dev, args.seed)
+    by_path["training"] = train_launches
+    for name, n in train_launches.items():
+        launches[name] += n
+    worst_grad, depth_ratio = grad_phase(dev, args.seed)
 
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -676,6 +1097,8 @@ def main(argv=None):
                                    "src/repro/kernels/decode_attention/kernel.py:175"),
         "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
                        "src/repro/kernels/rwkv6_scan/kernel.py:61"),
+        "rwkv6_scan_bwd": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                           "src/repro/kernels/rwkv6_scan/kernel.py:166"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -686,8 +1109,11 @@ def main(argv=None):
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **{k: v for k, v in r.items() if k.startswith("decode_")}})
-    log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; "
+            "launches_by_path": {path: n[name] for path, n in by_path.items()},
+            **{k: v for k, v in r.items() if k.startswith(("decode_", "train_"))}})
+    log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; f32 gradient "
+        f"check passed: worst {worst_grad:.3e} <= {LOGIT_RTOL}, full depth "
+        f"{depth_ratio:.3f} <= 1 of its limit; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,6 +9,13 @@ port keeps one dict per layer, layer ``i * block_size + j`` being block
 ``i``'s position ``j``. Nested layer dicts (``attn``/``mlp``, RWKV's
 ``tm``/``cm``) and ``ln0`` are carried as they are; every leaf keeps its
 dtype (RWKV's f32 ``decay_base``/``bonus``/``ln_x`` in a bf16 model too).
+
+``opt_state_from_jax(np_opt, cfg)`` carries the reference's AdamW state
+(``AdamW.init``/``update``'s ``{"m", "v", ["ef"]}``) the same way: each
+moment tree is laid out like the params, an int8 moment ``{"q", "s"}``
+splits per layer like any leaf (a stacked ``(n_blocks, ..., 1)`` scale
+becomes one ``(..., 1)`` scale per layer), and the ``ef`` residuals are f32
+trees like the params.
 """
 
 from __future__ import annotations
@@ -45,3 +52,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None):
     out["layers"] = [_map(blocks[j], lambda a, i=i: _tensor(np.asarray(a)[i], device))
                      for i in range(n_blocks) for j in range(block_size)]
     return out
+
+
+def opt_state_from_jax(np_opt, cfg: ModelConfig, device=None):
+    return {name: params_from_jax(tree, cfg, device=device)
+            for name, tree in np_opt.items()}

@@ -114,17 +114,20 @@ def dtype_code(t) -> int:
     return code
 
 
-def check_rows(t, name: str) -> None:
-    """The kernels read rows of ``hd`` elements with 16-byte vector loads:
-    unit last stride, every other stride a whole number of vectors, and a
-    16-byte aligned base."""
+def rows_ok(t) -> bool:
+    """Whether the kernels can read ``t``'s rows of ``hd`` elements with
+    16-byte vector loads: unit last stride, every other stride a whole
+    number of vectors, and a 16-byte aligned base."""
     vec = 16 // t.element_size()
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name}: last dim must be contiguous, strides {t.stride()}")
-    bad = [s for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1 and s % vec]
-    if bad or t.data_ptr() % 16:
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and not any(s % vec for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                        if n > 1))
+
+
+def check_rows(t, name: str) -> None:
+    if not rows_ok(t):
         raise ValueError(f"{name}: strides {t.stride()} / base not aligned to "
-                         f"16-byte rows")
+                         f"16-byte rows (need a unit last stride)")
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

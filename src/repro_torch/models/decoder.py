@@ -14,12 +14,14 @@ a stack with RWKV layers normalises its embeddings with ``ln0``. Params come
 either from the reference's weights (``repro_torch.convert.params_from_jax``)
 or from the port's own seeded ``init``.
 
-Three modes share one layer body: ``prefill`` (returns per-layer caches),
-``decode`` (dense cache, one token per row, per-row positions) and
-``decode_paged`` (paged pools + page table). An RWKV layer's cache is its
-state ``{"shift_tm", "shift_cm", "wkv"}``; it has no position, so it takes
-neither the paged layout nor a bucketed (``true_len``) prefill, and raises
-there as the reference does. Mamba mixers and MoE MLPs are not ported and
+Four modes share one layer body: ``train`` (``forward``/``loss``: the full
+sequence, no caches, each block under ``torch.utils.checkpoint`` when
+``cfg.remat == "full"``; RWKV stacks only so far, an attention layer raises),
+``prefill`` (returns per-layer caches), ``decode`` (dense cache, one token
+per row, per-row positions) and ``decode_paged`` (paged pools + page
+table). An RWKV layer's cache is its state ``{"shift_tm", "shift_cm",
+"wkv"}``; it has no position, so it takes neither the paged layout nor a
+bucketed (``true_len``) prefill, and raises there as the reference does. Mamba mixers and MoE MLPs are not ported and
 raise.
 """
 
@@ -29,6 +31,8 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as Fn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as A
@@ -76,9 +80,10 @@ class DecoderLM:
     def init(self, generator: torch.Generator, device=None, dtype=None):
         """The port's own seeded weights (same shapes and scales as the
         reference's init, not the same numbers). ``generator`` must live on
-        ``device``; weights are drawn there directly."""
+        ``device``; weights are drawn there directly. ``device="meta"``
+        gives the tree's shapes and dtypes without storage."""
         cfg = self.cfg
-        device = resolve_device(device)
+        device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
         dt = dtype or torch_dtype(cfg.param_dtype)
         params = {}
         if cfg.embed_inputs:
@@ -114,6 +119,10 @@ class DecoderLM:
     def _apply_layer(self, lp, x, spec, *, mode, positions=None, cache=None,
                      pos=None, max_len=None, true_len=None, pages=None):
         cfg = self.cfg
+        if spec.mixer == "attn" and mode == "train":
+            raise NotImplementedError(
+                "training attention layers is not ported yet (its backward "
+                "through the flash oracle is a later slice, ROADMAP Queue A)")
         if spec.mixer != "attn" and (mode == "decode_paged" or true_len is not None):
             raise NotImplementedError(
                 f"paged decode / bucketed (true_len) prefill support attention "
@@ -142,9 +151,10 @@ class DecoderLM:
 
     def _apply_rwkv_layer(self, lp, x, *, mode, cache):
         """Prefill returns a new state; decode updates ``cache`` in place
-        (the wkv state through the scan's ``state_out``)."""
+        (the wkv state through the scan's ``state_out``); train returns no
+        state."""
         cfg = self.cfg
-        decode = mode != "prefill"
+        decode = mode not in ("prefill", "train")
         h = apply_norm(lp["norm1"], x, cfg)
         if decode:
             y, sh_tm, wkv = R.rwkv_time_mix(
@@ -160,11 +170,36 @@ class DecoderLM:
                                       cache["shift_cm"] if decode else None)
         if cfg.post_norm:
             y = apply_norm(lp["norm2_post"], y, cfg)
+        if mode == "train":
+            return x + y, None
         if not decode:
             return x + y, {"shift_tm": sh_tm, "shift_cm": sh_cm, "wkv": wkv}
         cache["shift_tm"].copy_(sh_tm)
         cache["shift_cm"].copy_(sh_cm)
         return x + y, cache
+
+    def _train_stack(self, params, x):
+        """The train-mode stack, block by block (the reference scans over
+        blocks and wraps each in ``jax.checkpoint`` under ``remat``)."""
+        remat = self.cfg.remat
+        if remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save matmul outputs, recompute the rest) is not "
+                "ported; use 'full' or 'none' (ROADMAP Queue A, training)")
+        if remat not in ("full", "none"):
+            raise ValueError(f"remat={remat!r}")
+        bs = self.block_size
+        for i in range(self.n_blocks):
+            layers = list(zip(params["layers"][i * bs:(i + 1) * bs],
+                              self.layer_specs[i * bs:(i + 1) * bs]))
+
+            def block(x, layers=layers):
+                for lp, spec in layers:
+                    x, _ = self._apply_layer(lp, x, spec, mode="train")
+                return x
+
+            x = checkpoint(block, x, use_reentrant=False) if remat == "full" else block(x)
+        return x
 
     def _stack(self, params, x, mode, caches=None, **kw):
         new_caches = []
@@ -179,7 +214,7 @@ class DecoderLM:
     def _embed_in(self, params, tokens):
         cfg = self.cfg
         dt = self.dtype
-        x = params["embed"][tokens.long()].to(dt)
+        x = Fn.embedding(tokens.long(), params["embed"]).to(dt)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
         if "ln0" in params:
@@ -223,6 +258,34 @@ class DecoderLM:
                 for spec in self.layer_specs]
 
     # ----------------------------------------------------------------- public
+
+    def forward(self, params, tokens):
+        """Full training/scoring forward. tokens: (B,S). Returns (logits
+        (B,S,V), aux loss): aux is the MoE load-balancing loss, 0 here (no
+        MoE layer is ported)."""
+        x = self._train_stack(params, self._embed_in(params, tokens))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._unembed(params, x), aux
+
+    def loss(self, params, batch):
+        """Next-token cross-entropy in f32 over ``batch["tokens"]`` (B,S), the
+        last position masked, plus ``router_aux_coef * aux``. Returns (loss,
+        {"loss", "ce", "aux"}). Token batches only: the audio and vlm
+        families are not ported."""
+        cfg = self.cfg
+        if cfg.family in ("audio", "vlm"):
+            raise NotImplementedError(f"{cfg.family} batches are not ported")
+        tokens = batch["tokens"]
+        logits, aux = self.forward(params, tokens)
+        labels = torch.roll(tokens, -1, dims=1).long()
+        S = tokens.shape[1]
+        mask = (torch.arange(S, device=logits.device) < S - 1).float()
+        mask = mask[None].expand(labels.shape)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        ce = -torch.gather(lp, -1, labels[..., None])[..., 0]
+        ce = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        loss = ce + cfg.router_aux_coef * aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
 
     def prefill(self, params, *, tokens, max_len=None, true_len=None):
         """tokens: (B,S). Returns (last-token logits (B,V), caches).

@@ -1,7 +1,8 @@
 """Port kernels on the card: each hand-written CUDA kernel against its plain
 PyTorch version on the same CUDA inputs, at the reference's tolerances
 (attention: atol 2e-5 for f32 and int8-dequantised pools, 2e-2 for bf16;
-the RWKV-6 scan: atol = rtol = 1e-3, its inputs widened to f32 exactly).
+the RWKV-6 scan: atol = rtol = 1e-3, its inputs widened to f32 exactly; its
+backward: 1e-4 for f32 outputs, 2e-2 for bf16 ones).
 
 Needs a CUDA device and ``nvcc``; the ``cuda`` fixture skips every test here
 otherwise (decided inside the fixture, never at import, so every xdist
@@ -22,9 +23,9 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_fwd
+from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd, rwkv6_scan_fwd
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
 from repro_torch.optim.compress import quantize_int8
 
 pytestmark = pytest.mark.gpu
@@ -311,3 +312,127 @@ def test_rwkv_decoder_kernel_path_matches_plain_path(cuda):
             lp, cp = plain.decode_step(params, cp, tokens=tok, pos=37 + step)
     assert LAUNCHES["rwkv6_scan"] == 4 * cfg.num_layers
     assert PLAIN_CALLS["rwkv6_scan"] == 4 * cfg.num_layers
+
+
+# --------------------------------------------------- RWKV-6 scan backward (B7)
+
+BWD_TOL = 1e-4  # the reference's backward tolerance (tests/test_kernels.py), f32
+
+
+def _bwd_case(gen, dev, dtype, B, H, S, hd, *, model_layout=False):
+    """A forward case plus dy (f32, in the model's layout when asked) and a
+    nonzero dsT."""
+    r, k, v, w, u, s0 = _wkv_case(gen, dev, dtype, B, H, S, hd,
+                                  model_layout=model_layout)
+    shape = (B, S, H, hd) if model_layout else (B, H, S, hd)
+    dy = torch.randn(shape, generator=gen, device=dev)
+    dy = dy.transpose(1, 2) if model_layout else dy
+    dsT = 0.5 * torch.randn((B, H, hd, hd), generator=gen, device=dev)
+    return (r, k, v, w, u, s0), dy, dsT
+
+
+def _assert_bwd_close(got, ref, dtype):
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    for name, a, b in zip(names, got, ref):
+        tol = 2e-2 if (name in ("dr", "dk", "dv") and dtype == torch.bfloat16) else BWD_TOL
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S", [1, 37, 64, 130, 2048])
+def test_rwkv6_bwd_kernel_matches_plain(cuda, dtype, hd, S):
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    B, H = (2, 3) if S < 2048 else (1, 2)
+    (r, k, v, w, u, s0), dy, dsT = _bwd_case(gen, cuda, dtype, B, H, S, hd)
+    reset_counts()
+    y, sT, starts = rwkv6_scan_fwd(r, k, v, w, u, s0, save_states=True)
+    got = rwkv6_scan_bwd(r, k, v, w, dy, u, starts, dsT)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rwkv6_scan"] == LAUNCHES["rwkv6_scan_bwd"] == 1
+    y_ref, sT_ref, starts_ref = rwkv6_scan_ref(r, k, v, w, u, s0, save_states=True)
+    torch.testing.assert_close(starts, starts_ref, atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(y, y_ref, atol=WKV_TOL, rtol=WKV_TOL)
+    _assert_bwd_close(got, rwkv6_scan_bwd_ref(r, k, v, w, dy, u, starts, dsT), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rwkv6_bwd_kernel_model_layout_and_bitwise_repeatable(cuda, dtype):
+    """Strided (B,H,S,hd) views of (B,S,H,hd) storage in, the same layout
+    out; two runs agree bit for bit (one CTA per (b, h), no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    (r, k, v, w, u, s0), dy, dsT = _bwd_case(gen, cuda, dtype, 2, 40, 100, 64,
+                                             model_layout=True)
+    _, _, starts = rwkv6_scan_fwd(r, k, v, w, u, s0, save_states=True)
+    got = rwkv6_scan_bwd(r, k, v, w, dy, u, starts, dsT)
+    for t in got[:4]:
+        assert t.transpose(1, 2).is_contiguous()
+    again = rwkv6_scan_bwd(r, k, v, w, dy, u, starts, dsT)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = rwkv6_scan_bwd_ref(*(t.contiguous() for t in (r, k, v, w, dy, u)),
+                             starts, dsT)
+    _assert_bwd_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("S", [37, 130])
+def test_rwkv6_op_gradients_equal_autograd_through_plain(cuda, S):
+    """The autograd op (B5 with save_states, then B7) against autograd
+    through the plain forward, f32, every input's gradient, nonzero s0 and
+    a used sT."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    args, dy, dsT = _bwd_case(gen, cuda, torch.float32, 2, 4, S, 64)
+    grads = []
+    for impl in ("kernel", "ref"):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        y, sT = rwkv6_scan(*leaves, bwd_impl=impl)
+        grads.append(torch.autograd.grad((y * dy).sum() + (sT * dsT).sum(), leaves))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=BWD_TOL, rtol=BWD_TOL)
+
+
+def test_rwkv6_op_refuses_state_out_under_grad_and_mixed_devices(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    r, k, v, w, u, s0 = _wkv_case(gen, cuda, torch.float32, 1, 2, 8, 64)
+    rg = r.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="state_out"):
+        rwkv6_scan(rg, k, v, w, u, s0, state_out=s0)
+    _, _, starts = rwkv6_scan_fwd(r, k, v, w, u, s0, save_states=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6_scan_bwd(r, k, v, w, r.cpu(), u, starts, s0)
+    with pytest.raises(ValueError, match="s_starts"):
+        rwkv6_scan_bwd(r, k, v, w, r, u, starts[:, :, :0], s0)
+
+
+def test_rwkv_train_step_kernel_path_matches_plain_path(cuda):
+    """rwkv6-3b smoke config in f32 on the card, two train steps (two
+    microbatches, remat="full"): the kernel path's losses against the plain
+    path's within 5e-4, and the kernels launched as the path predicts."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant_schedule
+
+    cfg = smoke_config("rwkv6-3b").replace(num_microbatches=2, remat="full")
+    data = SyntheticBatches(cfg, 4, 130, seed=0)
+    losses = {}
+    for plain in (False, True):
+        model = build_model(cfg, plain=plain)
+        opt = AdamW(lr=constant_schedule(1e-3))
+        params = model.init(torch.Generator(device=cuda).manual_seed(24), device=cuda)
+        state, step = opt.init_state(params), make_train_step(model, opt)
+        reset_counts()
+        losses[plain] = []
+        for i in range(2):
+            state, metrics = step(state, data.batch(i))
+            losses[plain].append(float(metrics["loss"]))
+        n = 2 * 2 * cfg.num_layers  # steps x microbatches x layers
+        if plain:
+            assert LAUNCHES["rwkv6_scan"] == LAUNCHES["rwkv6_scan_bwd"] == 0
+        else:
+            assert LAUNCHES["rwkv6_scan"] == 2 * n and LAUNCHES["rwkv6_scan_bwd"] == n
+            assert PLAIN_CALLS["rwkv6_scan"] == PLAIN_CALLS["rwkv6_scan_bwd"] == 0
+    np.testing.assert_allclose(losses[False], losses[True], atol=5e-4, rtol=5e-4)

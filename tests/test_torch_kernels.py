@@ -41,7 +41,8 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     FlashParams, flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.kernel import (  # noqa: E402
-    Rwkv6Params, rwkv6_scan_fwd)
+    Rwkv6BwdParams, Rwkv6Params, rwkv6_scan_bwd, rwkv6_scan_fwd)
+from repro_torch.kernels.rwkv6_scan.ref import CHECKPOINT  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
 from repro_torch.optim.compress import dequantize_int8, quantize_int8  # noqa: E402
 
@@ -230,6 +231,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     r = torch.zeros(1, 2, 16, 32)
     with pytest.raises(ValueError):
         rwkv6_scan_fwd(r, r, r, r, torch.zeros(2, 32), torch.zeros(1, 2, 32, 32))
+    with pytest.raises(ValueError):
+        rwkv6_scan_bwd(r, r, r, r, r, torch.zeros(2, 32),
+                       torch.zeros(1, 2, 2, 32, 32), torch.zeros(1, 2, 32, 32))
     m = r.to("meta")
     with pytest.raises(ValueError):
         rwkv6_scan(m, m, m, m, torch.zeros(2, 32).to("meta"),
@@ -244,6 +248,7 @@ _CTYPE_SIZES = {"const void*": 8, "void*": 8, "const float*": 8, "float*": 8,
     ("flash_attention.cu", "FlashParams", FlashParams),
     ("decode_attention.cu", "DecodeParams", DecodeParams),
     ("rwkv6_scan.cu", "Rwkv6Params", Rwkv6Params),
+    ("rwkv6_scan.cu", "Rwkv6BwdParams", Rwkv6BwdParams),
 ])
 def test_ctypes_struct_mirrors_cuda_source(src, struct, mirror):
     """The C entries take a pointer to a parameter struct; its ctypes mirror
@@ -261,6 +266,14 @@ def test_ctypes_struct_mirrors_cuda_source(src, struct, mirror):
     assert got == fields
 
 
+def test_rwkv_checkpoint_interval_matches_cuda_source():
+    """The forward kernel saves, and the backward kernel rewinds from, a
+    state every CK steps; the plain versions and the wrapper's buffer
+    shapes use ``CHECKPOINT``."""
+    text = (SRC / "repro_torch" / "csrc" / "rwkv6_scan.cu").read_text()
+    assert int(re.search(r"constexpr int CK = (\d+);", text).group(1)) == CHECKPOINT
+
+
 def test_port_imports_neither_jax_nor_reference():
     """Every module of repro_torch imports in a fresh interpreter with
     neither ``jax`` nor ``repro`` ending up in ``sys.modules``."""
@@ -271,12 +284,17 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+        "print(' '.join(n for n in sys.modules if n.startswith('repro_torch')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=dict(os.environ, PYTHONPATH=str(SRC)),
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 47
+    assert {"repro_torch.checkpoint.checkpointer", "repro_torch.data.pipeline",
+            "repro_torch.runtime.elastic", "repro_torch.runtime.straggler",
+            "repro_torch.launch.train", "repro_torch.launch.steps",
+            "repro_torch.optim.adamw", "repro_torch.optim.schedule"} <= names
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
