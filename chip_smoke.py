@@ -6,31 +6,44 @@
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and outside a
 checkout of the repository. Phases (none catches its own failure):
 
-1. build — every ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a), in parallel;
+1. build — every ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a), in
+   parallel; each kernel entry's registers, shared memory and spills from
+   ``ptxas -v``;
 2. kernels — each hand-written kernel against its plain PyTorch version on
    the card at full-width shapes. Attention at starcoder2-3b's (H=24, KV=2,
-   hd=128, bs=16, B=4, L=4096; flash S=4608, window 4096), plus softcap=50
+   hd=128, bs=16, B=4, L=4096; flash S=4608, window 4096), and at
+   jamba-1.5-large-398b's (H=64, KV=8, hd=128, bf16; flash S=4500 global,
+   dense decode B=4 over 8192 slots), plus softcap=50
    and hd=256 cases; tolerances atol 2e-5 for f32 and int8-dequantised
    pools, 2e-2 for bf16. The RWKV-6 scan at rwkv6-3b's (H=40, hd=64): a
    4500-token prefill and a 4-slot decode step in bf16, an f32 prefill, and
    two value-column splits bitwise equal; tolerance atol = rtol = 1e-3.
+   The Mamba selective scan at jamba's (Di=16384, N=16, f32): a 4500-token
+   prefill, ragged S = 37 and 130, and a 4-slot decode step with the state
+   updated in place, two runs bitwise equal; tolerance atol = rtol = 1e-4.
    Times from CUDA events: kernel, plain version, and one PyTorch library
    call computing the same function where there is one (timed only; the
-   port never calls it). The scan's decode step is too short for events
-   over back-to-back calls to see past the host; its kernel time comes
+   port never calls it). The scans' decode steps are too short for events
+   over back-to-back calls to see past the host; their kernel time comes
    from torch.profiler;
 3. serving — full width, bf16, seeded random weights, through
    ``ContinuousBatcher`` (4 slots, max_len 8192) for 8 requests of prompt
    lengths ``PROMPT_LENS`` and 24 new tokens each: starcoder2-3b paged,
    paged-int8 and dense (16-token pages, bucket 16), then rwkv6-3b dense
-   (exact-length prefill). The launch and plain-call counts are zeroed just
+   (exact-length prefill), then jamba-1.5-large-398b dense (exact-length
+   prefill) at ``JAMBA_SERVE``: 16 of its 72 layers (2 of its 8-layer
+   blocks: 14 Mamba and 2 attention layers), experts off, every MoE FFN the
+   dense SwiGLU the reference builds then, 16.9 B parameters, 33.86 GB in
+   bf16. The launch and plain-call counts are zeroed just
    before each run and read just after: every kernel of the run must have
    launched, no plain version may have run, and paged tokens must equal
    dense tokens;
-4. f32 model check — starcoder2-3b, then rwkv6-3b, full width in f32:
-   prefill logits of a 513-token prompt and the 4 dense decode steps after
-   it, kernel path against the plain path on the card, within 2e-4 of
-   max |logit|;
+4. f32 model check — starcoder2-3b, rwkv6-3b and jamba full width in
+   f32: prefill logits of a 513-token prompt and the 4 dense decode steps
+   after it, kernel path against the plain path on the card, within 2e-4
+   of max |logit|. jamba runs one 8-layer block here (``JAMBA_F32``: 7
+   Mamba layers and 1 attention layer, 9.0 B parameters, 36.0 GB in f32):
+   its 16 serving layers would take 68 GB in f32;
 5. training — full-width rwkv6-3b in bf16 through ``ElasticTrainer``:
    global batch 4 x 2048 tokens in the config's 2 microbatches, remat
    "full", 3 steps at a constant learning rate, a revocation before step 1
@@ -55,9 +68,11 @@ model's layout), in f32 and at ragged S = 37 and 130, with nonzero s0 and
 dsT; tolerance atol = rtol = 1e-4 for f32 outputs, 2e-2 for bf16 ones (the
 reference's backward and bf16 tolerances), and two runs bitwise equal.
 
-TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN). The
-last lines are the kernel table (JSON), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN). Every
+phase releases what it allocated; the script checks that less than 1 GB is
+left allocated before each model phase, so the 80 GB card holds one
+phase's peak at a time. The last lines are the kernel table (JSON), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -78,6 +93,11 @@ LOGIT_RTOL = 2e-4             # f32 kernel path vs plain path, of max |logit|
 NEG_INF = -2.3819763e38
 ARCH = "starcoder2-3b"
 RWKV_ARCH = "rwkv6-3b"
+JAMBA_ARCH = "jamba-1.5-large-398b"
+NO_MOE = dict(moe_period=0, num_experts=0, experts_per_token=0)
+JAMBA_SERVE = dict(num_layers=16, **NO_MOE)   # 2 of 9 blocks, bf16: 33.86 GB
+JAMBA_F32 = dict(num_layers=8, **NO_MOE)      # 1 block, f32: 36.0 GB
+LEFT_OVER_BYTES = 1 << 30     # allocated memory a phase may find on entry
 PROMPT_LENS = (17, 100, 513, 1000, 2047, 4500, 31, 250)
 MAX_NEW = 24
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
@@ -139,6 +159,20 @@ def flash_pairs(S, window):
     return int(np.minimum(q + 1, window if window else S).sum())
 
 
+def log_ptxas(stem, path):
+    """One line per kernel entry of a library from its ``ptxas -v`` log:
+    registers, shared memory, barriers and spills."""
+    entry, spills = None, ""
+    for line in path.read_text(errors="replace").splitlines():
+        if "Compiling entry function" in line:
+            entry, spills = line.split("'")[1], ""
+        elif "spill stores" in line and entry:
+            spills = line.strip()
+        elif line.startswith("ptxas info    : Used") and entry:
+            log(f"  ptxas {stem} {entry}: {line.split(': ', 1)[1]}; {spills}")
+            entry = None
+
+
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 
@@ -154,6 +188,16 @@ def _check(name, got, ref, tol):
         raise AssertionError(f"{name}: kernel vs plain exceeds atol=rtol={tol} "
                              f"(max_abs_err {err})")
     return err
+
+
+def _prefixed(prefix, row):
+    return {prefix + k: v for k, v in row.items()}
+
+
+def _log_shape_row(label, row):
+    log(f"  {label}: ms={row['jamba_ms']:.4f} plain_ms={row['jamba_plain_ms']:.4f} "
+        f"library_ms={row['jamba_library_ms']:.4f} bound_ms={row['jamba_bound_ms']:.5f} "
+        f"({row['jamba_bound_by']}) at {row['jamba_shape']}")
 
 
 def kernel_phase(dev):
@@ -197,6 +241,24 @@ def kernel_phase(dev):
                 **bound(nbytes(q, k, v, o), 4 * B * H * hd * pairs, "bfloat16"),
                 shape=f"B={B} H={H} KV={KV} S={S} hd={hd} window={W} bf16")
         del q, k, v, o, ref
+    # jamba's attention layers: H=64, KV=8 (G=8), global, the longest
+    # serving prompt, bf16 as the serving path runs them
+    JH, JKV, JS = 64, 8, max(PROMPT_LENS)
+    q, k, v = (randn((B, JS, n, hd), bf16).transpose(1, 2) for n in (JH, JKV, JKV))
+    o = flash_attention_fwd(q, k, v)
+    err = _check(f"flash bf16 jamba H={JH} KV={JKV} S={JS} global", o,
+                 attention_ref(q, k, v), tol[bf16])
+    rows["flash_attention"].update(_prefixed("jamba_", dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: flash_attention_fwd(q, k, v), 5),
+        plain_ms=time_ms(lambda: attention_ref(q, k, v), 3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5),
+        **bound(nbytes(q, k, v, o), 4 * B * JH * hd * flash_pairs(JS, 0), "bfloat16"),
+        shape=f"B={B} H={JH} KV={JKV} S={JS} hd={hd} global bf16")))
+    _log_shape_row("flash_attention jamba", rows["flash_attention"])
+    rows["flash_attention"]["max_abs_err"] = max(err, rows["flash_attention"]["max_abs_err"])
+    del q, k, v, o
     q, k, v = (randn((1, 1024, n, hd), bf16).transpose(1, 2) for n in (H, KV, KV))
     _check("flash bf16 S=1024 softcap=50", flash_attention_fwd(q, k, v, softcap=50.0),
            attention_ref(q, k, v, softcap=50.0), tol[bf16])
@@ -238,6 +300,33 @@ def kernel_phase(dev):
                         "bfloat16"),
                 shape=f"B={B} H={H} KV={KV} L={L} hd={hd} bf16, per-slot bias")
         del caches, k, v
+    # jamba's attention layers: 4 slots of its serving run's 8192-slot
+    # cache, H=64, KV=8 (G=8); two caches of 134 MB, each beyond L2
+    JL = 8192
+    jlens = torch.tensor([JL, max(PROMPT_LENS) + MAX_NEW, 1013, 41], device=dev)
+    jbias = torch.where(torch.arange(JL, device=dev)[None] < jlens[:, None],
+                        0.0, NEG_INF).float()
+    q = randn((B, JH, hd), bf16)
+    caches = [tuple(randn((B, JL, JKV, hd), bf16).transpose(1, 2) for _ in range(2))
+              for _ in range(2)]
+    k, v = caches[0]
+    o = decode_attention_fwd(q, k, v, jbias)
+    err = _check(f"decode bf16 jamba B={B} H={JH} KV={JKV} L={JL}", o,
+                 decode_attention_ref(q, k, v, jbias), tol[bf16])
+    it = iter(range(10**9))
+    rows["decode_attention"].update(_prefixed("jamba_", dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: decode_attention_fwd(q, *caches[next(it) % 2], jbias), 40),
+        plain_ms=time_ms(lambda: decode_attention_ref(
+            q, *caches[next(it) % 2], jbias), 20),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], *caches[next(it) % 2], attn_mask=jbias[:, None, None, :],
+            enable_gqa=True), 40),
+        **bound(nbytes(q, k, v, jbias, o), 4 * B * JH * hd * JL, "bfloat16"),
+        shape=f"B={B} H={JH} KV={JKV} L={JL} hd={hd} bf16, per-slot bias")))
+    _log_shape_row("decode_attention jamba", rows["decode_attention"])
+    rows["decode_attention"]["max_abs_err"] = max(err, rows["decode_attention"]["max_abs_err"])
+    del caches, k, v, o
     q = randn((B, H, hd), bf16)
     k, v = (randn((B, L, KV, hd), bf16).transpose(1, 2) for _ in range(2))
     _check("decode bf16 softcap=50", decode_attention_fwd(q, k, v, bias, softcap=50.0),
@@ -385,7 +474,7 @@ def rwkv_kernel_phase(dev):
     row.update(
         max_abs_err=max(err, derr),
         decode_ms=kernel_device_ms(lambda: step(rwkv6_scan_fwd), 100,
-                                   "rwkv6_kernel"),
+                                   "rwkv6_kernel", "rwkv6_scan"),
         decode_issue_ms=time_ms(lambda: step(rwkv6_scan_fwd), 100),
         decode_plain_ms=time_ms(lambda: step(rwkv6_scan_ref), 50),
         decode_bound_ms=bound(nbytes(r, k, v, w, u, s0, y, sT), flops(B, 1),
@@ -502,27 +591,133 @@ def rwkv_bwd_kernel_phase(dev):
     return {"rwkv6_scan_bwd": row}
 
 
-def kernel_device_ms(fn, n, kernel):
+def ssm_kernel_phase(dev):
+    """B4 at jamba's full width (Di=16384, N=16, all f32): a prefill of the
+    longest serving prompt (B=1, S=4500), ragged S = 37 and 130 (B=2), and
+    a 4-slot decode step (S=1) with hT aliasing h0 as the model runs it;
+    inputs as the model makes them (dt a softplus, A < 0 in the S4D init's
+    range, unit-scale x, B, C, D, nonzero h0); two runs bitwise equal.
+    Tolerance: the reference's SSM atol = rtol = 1e-4 (tests/test_kernels.py);
+    both sides compute in f32 from the same inputs and differ in the order
+    of the sum over n and in the exponential's rounding."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_fwd
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(6543)
+    tol = 1e-4
+    Di, N = 16384, 16
+
+    def case(B, S):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        dt = F.softplus(randn(B, S, Di) - 1.0)
+        A = -(0.5 + 15.5 * torch.rand((Di, N), generator=gen, device=dev))
+        return (randn(B, S, Di), dt, A, randn(B, S, N), randn(B, S, N), randn(Di),
+                0.5 * randn(B, Di, N))
+
+    def flops(B, S):
+        # per (d, n, t): dt*A, exp (counted as one), da*h, dtx*B and their
+        # sum, h*C and the running sum; per (d, t): dt*x, D*x and its add
+        return B * S * Di * (7 * N + 3)
+
+    def check(label, args):
+        y, hT = ssm_scan_fwd(*args)
+        y_ref, hT_ref = ssm_scan_ref(*args)
+        return (y, hT), max(_check(f"{label} y", y, y_ref, tol),
+                            _check(f"{label} hT", hT, hT_ref, tol))
+
+    log("kernel phase: ssm_scan (B4)")
+    B, S = 1, max(PROMPT_LENS)
+    args = case(B, S)
+    (y, hT), err = check(f"ssm f32 prefill B={B} S={S} Di={Di} N={N}", args)
+    again = ssm_scan_fwd(*args)
+    if not (torch.equal(again[0], y) and torch.equal(again[1], hT)):
+        raise AssertionError("ssm_scan: two runs differ")
+    log("  ssm prefill: two runs bitwise equal")
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ssm_scan_fwd(*args), 10),
+        plain_ms=time_ms(lambda: ssm_scan_ref(*args), 1, warmup=1),
+        library_ms=None,  # no single PyTorch call computes the selective scan
+        **bound(nbytes(*args, y, hT), flops(B, S), "float32"),
+        shape=f"prefill B={B} S={S} Di={Di} N={N}, f32")
+    del args, y, hT, again
+    for S in (37, 130):
+        _, e = check(f"ssm f32 ragged B=2 S={S}", case(2, S))
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+
+    # decode: 4 slots, one step, the state updated in place as the model
+    # does; states rotated over 32 copies (134 MB) so each launch reads HBM
+    B, n_copies = 4, 32
+    x, dt, A, Bc, Cc, D, h0 = case(B, 1)
+    (y, hT), derr = check(f"ssm f32 decode B={B} S=1", (x, dt, A, Bc, Cc, D, h0))
+    state = h0.clone()
+    y2, _ = ssm_scan_fwd(x, dt, A, Bc, Cc, D, state, state_out=state)
+    if not (torch.equal(y2, y) and torch.equal(state, hT)):
+        raise AssertionError("ssm_scan: the in-place state differs from out of place")
+    log("  ssm decode: hT written over h0 equals out of place, bitwise")
+    states = [h0.clone() for _ in range(n_copies)]
+    it = iter(range(10**9))
+
+    def step(fn):
+        st = states[next(it) % n_copies]
+        return fn(x, dt, A, Bc, Cc, D, st, state_out=st)
+
+    row.update(
+        max_abs_err=max(row["max_abs_err"], derr),
+        decode_ms=kernel_device_ms(lambda: step(ssm_scan_fwd), 100, "ssm_scan_kernel",
+                                   "ssm_scan"),
+        decode_issue_ms=time_ms(lambda: step(ssm_scan_fwd), 100),
+        decode_plain_ms=time_ms(lambda: step(ssm_scan_ref), 50),
+        decode_bound_ms=bound(nbytes(x, dt, A, Bc, Cc, D, h0, y, hT), flops(B, 1),
+                              "float32")["bound_ms"])
+    log(f"  ssm prefill ms={row['ms']:.4f} plain_ms={row['plain_ms']:.2f} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); decode device "
+        f"ms={row['decode_ms']:.5f} (profiler) issue ms={row['decode_issue_ms']:.4f} "
+        f"(events, back-to-back wrapper calls) plain_ms={row['decode_plain_ms']:.4f} "
+        f"bound_ms={row['decode_bound_ms']:.5f}; library: none")
+    del x, dt, A, Bc, Cc, D, h0, y, hT, states, state, y2
+    torch.cuda.empty_cache()
+    return {"ssm_scan": row}
+
+
+def kernel_device_ms(fn, n, kernel, op):
     """Mean device time per launch of the CUDA kernels whose name holds
     ``kernel``, from torch.profiler over ``n`` calls of ``fn``, each of
-    which must launch one."""
+    which must launch one: the wrapper's counter ``LAUNCHES[op]`` must rise
+    by exactly ``n``. The mean is over the launches the profiler recorded,
+    which may drop a few of its activity records (CUPTI once reported 99 of
+    100 launches on the card); fewer than nine in ten recorded fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import LAUNCHES
+
     fn()
     torch.cuda.synchronize()
+    before = LAUNCHES[op]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    issued = LAUNCHES[op] - before
+    if issued != n:
+        raise AssertionError(f"{n} calls launched {op} {issued} times")
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and kernel in e.key]
-    launches = sum(e.count for e in events)
-    if launches != n:
-        raise AssertionError(f"profiler saw {launches} launches of {kernel}, "
-                             f"expected {n}")
-    return sum(e.self_device_time_total for e in events) / n / 1e3
+    recorded = sum(e.count for e in events)
+    if not n - n // 10 <= recorded <= n:
+        raise AssertionError(f"profiler recorded {recorded} launches of {kernel} "
+                             f"for {n} issued")
+    if recorded != n:
+        log(f"  profiler recorded {recorded} of {n} launches of {kernel}; "
+            f"mean over those recorded")
+    return sum(e.self_device_time_total for e in events) / recorded / 1e3
 
 
 def decode_profile(fn, n=5):
@@ -569,15 +764,27 @@ STARCODER_LAYOUTS = {  # layout: (batcher options, kernels it must launch)
     "dense": (dict(kv_layout="dense"), ("flash_attention", "decode_attention")),
 }
 RWKV_LAYOUTS = {"dense": (dict(kv_layout="dense"), ("rwkv6_scan",))}
+JAMBA_LAYOUTS = {"dense": (dict(kv_layout="dense"),
+                           ("flash_attention", "decode_attention", "ssm_scan"))}
 
 
-def serving_phase(dev, seed, arch, layouts):
-    """One ContinuousBatcher run per layout, the counts zeroed just before
-    and read just after each."""
+def check_released(dev, what):
+    """Fail unless the earlier phases released their memory: each model
+    phase needs the card to itself."""
+    import torch
+
+    left = torch.cuda.memory_allocated(dev)
+    log(f"  memory allocated before {what}: {left} bytes")
+    if left > LEFT_OVER_BYTES:
+        raise AssertionError(f"{left} bytes still allocated before {what}")
+
+
+def serving_phase(dev, seed, cfg, layouts):
+    """One ContinuousBatcher run per layout of the model ``cfg``, the counts
+    zeroed just before and read just after each."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import KERNEL_NAMES, LAUNCHES, PLAIN_CALLS, reset_counts
     from repro_torch.models.decoder import DecoderLM
     from repro_torch.runtime.batching import ContinuousBatcher, GenRequest
@@ -611,11 +818,12 @@ def serving_phase(dev, seed, arch, layouts):
             self.decode_ms.append(ms)
             return out
 
-    cfg = get_config(arch)
-    log(f"serving phase: {arch} full width: layers={cfg.num_layers} "
+    check_released(dev, f"serving {cfg.name}")
+    log(f"serving phase: {cfg.name} full width: layers={cfg.num_layers} "
         f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
         f"hd={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
-        f"window={cfg.window_size} mixers={cfg.mixer_pattern} dtype={cfg.dtype}")
+        f"window={cfg.window_size} mixers={cfg.mixer_pattern} "
+        f"moe_period={cfg.moe_period} dtype={cfg.dtype}")
     t0 = time.perf_counter()
     probe = TimedModel(cfg)
     params = probe.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
@@ -701,17 +909,18 @@ def _leaves(tree):
 # phase 4: full-width f32 logits, kernel path vs plain path
 
 
-def f32_phase(dev, seed, arch):
-    """Prefill a 513-token prompt (attention: in a 1024 bucket; RWKV: exact
-    length) and 4 dense decode steps, kernel path against plain path."""
+def f32_phase(dev, seed, cfg):
+    """Prefill a 513-token prompt (attention: in a 1024 bucket; RWKV and
+    Mamba stacks: exact length) and 4 dense decode steps of the model
+    ``cfg`` in f32, kernel path against plain path."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models.decoder import DecoderLM
     from repro_torch.runtime.batching import ContinuousBatcher
 
-    cfg = get_config(arch).replace(dtype="float32", param_dtype="float32")
+    check_released(dev, f"the f32 phase of {cfg.name}")
+    cfg = cfg.replace(dtype="float32", param_dtype="float32")
     kern, plain = DecoderLM(cfg), DecoderLM(cfg, plain=True)
     params = kern.init(torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
     rng = np.random.default_rng(seed + 1)
@@ -722,7 +931,8 @@ def f32_phase(dev, seed, arch):
     toks[0, :plen] = rng.integers(1, cfg.vocab_size, plen)
     toks = torch.as_tensor(toks, device=dev)
     kw = dict(max_len=max_len, true_len=plen if bucketed else None)
-    log(f"f32 phase: {arch} full width in float32, prompt {plen} in bucket {bucket}")
+    log(f"f32 phase: {cfg.name} full width in float32, {cfg.num_layers} layers, "
+        f"prompt {plen} in bucket {bucket}")
     worst = 0.0
     with torch.inference_mode():
         lk, ck = kern.prefill(params, tokens=toks, **kw)
@@ -820,6 +1030,7 @@ def train_phase(dev, seed):
             self.rescale_ms.append(1e3 * (time.perf_counter() - t0))
             return state
 
+    check_released(dev, "training")
     cfg = get_config(RWKV_ARCH)
     M, L = cfg.num_microbatches, cfg.num_layers
     log(f"train phase: {RWKV_ARCH} full width {cfg.dtype}, batch {TRAIN_BATCH} x "
@@ -921,6 +1132,7 @@ def grad_phase(dev, seed):
     from repro_torch.models.decoder import DecoderLM
     from repro_torch.tree import leaves_with_paths, unflatten
 
+    check_released(dev, "the gradient phase")
     S = 130
     cfg = get_config(RWKV_ARCH).replace(dtype="float32", param_dtype="float32")
     tokens = torch.as_tensor(SyntheticBatches(cfg, 1, S, seed=seed).batch(0)["tokens"],
@@ -1071,17 +1283,27 @@ def main(argv=None):
     libs = _build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s (nvcc "
         f"{' '.join(_build.NVCC_FLAGS)})")
+    for stem, path in sorted(libs.items()):
+        log_ptxas(stem, path.with_suffix(".log"))
 
     rows = kernel_phase(dev)
     rows.update(rwkv_kernel_phase(dev))
     rows.update(rwkv_bwd_kernel_phase(dev))
-    launches, _ = serving_phase(dev, args.seed, ARCH, STARCODER_LAYOUTS)
+    rows.update(ssm_kernel_phase(dev))
+
+    from repro_torch.configs import get_config
+
+    jamba = get_config(JAMBA_ARCH)
+    launches, _ = serving_phase(dev, args.seed, get_config(ARCH), STARCODER_LAYOUTS)
     by_path = {"serving": dict(launches)}
-    rwkv_launches, _ = serving_phase(dev, args.seed, RWKV_ARCH, RWKV_LAYOUTS)
-    for name, n in rwkv_launches.items():
-        launches[name] += n
-        by_path["serving"][name] += n
-    worst = max(f32_phase(dev, args.seed, ARCH), f32_phase(dev, args.seed, RWKV_ARCH))
+    for cfg, layouts in ((get_config(RWKV_ARCH), RWKV_LAYOUTS),
+                         (jamba.replace(**JAMBA_SERVE), JAMBA_LAYOUTS)):
+        more, _ = serving_phase(dev, args.seed, cfg, layouts)
+        for name, n in more.items():
+            launches[name] += n
+            by_path["serving"][name] += n
+    worst = max(f32_phase(dev, args.seed, cfg) for cfg in (
+        get_config(ARCH), get_config(RWKV_ARCH), jamba.replace(**JAMBA_F32)))
     train_launches, _ = train_phase(dev, args.seed)
     by_path["training"] = train_launches
     for name, n in train_launches.items():
@@ -1099,6 +1321,8 @@ def main(argv=None):
                        "src/repro/kernels/rwkv6_scan/kernel.py:61"),
         "rwkv6_scan_bwd": ("src/repro_torch/csrc/rwkv6_scan.cu",
                            "src/repro/kernels/rwkv6_scan/kernel.py:166"),
+        "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/kernel.py:62"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -1110,7 +1334,8 @@ def main(argv=None):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
             "launches_by_path": {path: n[name] for path, n in by_path.items()},
-            **{k: v for k, v in r.items() if k.startswith(("decode_", "train_"))}})
+            **{k: v for k, v in r.items()
+               if k.startswith(("decode_", "train_", "jamba_"))}})
     log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; f32 gradient "
         f"check passed: worst {worst_grad:.3e} <= {LOGIT_RTOL}, full depth "
         f"{depth_ratio:.3f} <= 1 of its limit; "

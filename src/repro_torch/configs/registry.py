@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``get_config`` + reduced smoke configs.
 
 A copy of ``repro.configs.registry`` restricted to the stacks the port serves
-so far: attention-only (starcoder2-3b, gemma2-2b) and RWKV-6 (rwkv6-3b).
+so far: attention-only (starcoder2-3b, gemma2-2b), RWKV-6 (rwkv6-3b) and
+the Mamba/attention hybrid jamba-1.5-large-398b (its MoE layers are not
+ported: the port builds it with ``moe_period=0``, see ``models.decoder``).
 ``smoke_config`` is the reference's reduction verbatim, so a smoke config
 built here equals the reference's field for field.
 """
@@ -17,6 +19,7 @@ _MODULES: Dict[str, str] = {
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -20,7 +20,7 @@ from __future__ import annotations
 from typing import Dict
 
 KERNEL_NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
-                "rwkv6_scan", "rwkv6_scan_bwd")
+                "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 # plus the model-level plain attention (``models.attention.plain=True``)

@@ -8,7 +8,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b  # RWKV-6
 
 ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS`` (starcoder2-3b,
-gemma2-2b, rwkv6-3b). Weights are the port's own seeded init (``--seed``).
+gemma2-2b, rwkv6-3b; jamba-1.5-large-398b raises: its MoE layers are not
+ported, see ``repro_torch.models.decoder``). Weights are the port's own
+seeded init (``--seed``).
 The reference's ``--scenario`` fleet mode is not ported yet.
 """
 

@@ -1,5 +1,5 @@
-"""Decoder LM for attention and RWKV-6 stacks (twin of
-``repro.models.decoder``).
+"""Decoder LM for attention, RWKV-6 and Mamba/attention hybrid stacks (twin
+of ``repro.models.decoder``).
 
 The reference scans over parameter-stacked blocks; the port keeps the same
 block structure (``block_structure``) but stores one params dict per layer
@@ -8,21 +8,28 @@ position j is layer ``i * block_size + j``).
 
 Params: ``{"embed": (V, d), ["lm_head": (d, V)], ["ln0": {...}],
 "final_norm": {...}, "layers": [...]}``; an attention layer is ``{"norm1",
-"norm2", "attn", "mlp", ["norm1_post", "norm2_post"]}``, an RWKV layer
-``{"norm1", "norm2", "tm", "cm"}`` (time-mix and channel-mix, no MLP), and
-a stack with RWKV layers normalises its embeddings with ``ln0``. Params come
+"norm2", "attn", "mlp", ["norm1_post", "norm2_post"]}``, a Mamba layer
+``{"norm1", "norm2", "mamba", "mlp"}``, an RWKV layer ``{"norm1", "norm2",
+"tm", "cm"}`` (time-mix and channel-mix, no MLP), and a stack with RWKV
+layers normalises its embeddings with ``ln0``. Params come
 either from the reference's weights (``repro_torch.convert.params_from_jax``)
 or from the port's own seeded ``init``.
 
 Four modes share one layer body: ``train`` (``forward``/``loss``: the full
 sequence, no caches, each block under ``torch.utils.checkpoint`` when
-``cfg.remat == "full"``; RWKV stacks only so far, an attention layer raises),
+``cfg.remat == "full"``; RWKV stacks only so far, an attention or Mamba
+layer raises),
 ``prefill`` (returns per-layer caches), ``decode`` (dense cache, one token
 per row, per-row positions) and ``decode_paged`` (paged pools + page
 table). An RWKV layer's cache is its state ``{"shift_tm", "shift_cm",
-"wkv"}``; it has no position, so it takes neither the paged layout nor a
-bucketed (``true_len``) prefill, and raises there as the reference does. Mamba mixers and MoE MLPs are not ported and
-raise.
+"wkv"}``, a Mamba layer's ``{"conv", "ssm"}``; decode updates both in
+place. Neither has a position, so a stack with either takes neither the
+paged layout nor a bucketed (``true_len``) prefill, and raises there as the
+reference does. MoE MLPs are not ported: a config with MoE layers
+(``moe_period > 0``) raises at construction, so jamba-1.5-large-398b runs
+as ``replace(moe_period=0, num_experts=0, experts_per_token=0)``, every MoE
+FFN a dense SwiGLU of the published ``d_ff``, which is what the reference
+builds for that config.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as A
+from repro_torch.models import mamba as M
 from repro_torch.models import mlp as F
 from repro_torch.models import rwkv as R
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
@@ -46,19 +54,24 @@ from repro_torch.models.config import ModelConfig, block_structure
 class DecoderLM:
     def __init__(self, cfg: ModelConfig, *, plain: bool = False):
         """``plain=True`` runs attention through the model-level plain
-        PyTorch math and the WKV scan through its plain version, on any
-        device (the yardstick for the kernel path)."""
-        unported = sorted(set(cfg.mixer_pattern) - {"attn", "rwkv"})
+        PyTorch math and the WKV and selective scans through their plain
+        versions, on any device (the yardstick for the kernel path)."""
+        unported = sorted(set(cfg.mixer_pattern) - {"attn", "rwkv", "mamba"})
         if unported:
             raise NotImplementedError(
-                f"{cfg.name}: mixers {unported} are not ported yet; the port "
-                f"serves attention and RWKV-6 stacks")
+                f"{cfg.name}: mixers {unported} are not ported; the port "
+                f"serves attention, RWKV-6 and Mamba stacks")
         if cfg.dtype != cfg.param_dtype:
             raise ValueError(f"{cfg.name}: the port computes in the param dtype; "
                              f"dtype={cfg.dtype} != param_dtype={cfg.param_dtype}")
         self.cfg = cfg
         self.plain = plain
         self.block_size, self.n_blocks, self.specs = block_structure(cfg)
+        if any(s.is_moe for s in self.specs):
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers (moe_period={cfg.moe_period}, "
+                f"num_experts={cfg.num_experts}) are not ported; build it with "
+                f"moe_period=0, num_experts=0, experts_per_token=0")
         self.layer_specs = [self.specs[j] for _ in range(self.n_blocks)
                             for j in range(self.block_size)]
 
@@ -97,13 +110,14 @@ class DecoderLM:
         params["final_norm"] = init_norm(cfg, dt, device)
         layers = []
         for spec in self.layer_specs:
-            if spec.is_moe:
-                raise NotImplementedError(f"{cfg.name}: MoE layers are not ported")
             lp = {"norm1": init_norm(cfg, dt, device),
                   "norm2": init_norm(cfg, dt, device)}
             if spec.mixer == "rwkv":
                 lp["tm"] = R.init_rwkv_tm(generator, cfg, dt, device)
                 lp["cm"] = R.init_rwkv_cm(generator, cfg, dt, device)
+            elif spec.mixer == "mamba":
+                lp["mamba"] = M.init_mamba(generator, cfg, dt, device)
+                lp["mlp"] = F.init_mlp(generator, cfg, dt, device)
             else:
                 lp["attn"] = A.init_attention(generator, cfg, dt, device)
                 lp["mlp"] = F.init_mlp(generator, cfg, dt, device)
@@ -119,10 +133,12 @@ class DecoderLM:
     def _apply_layer(self, lp, x, spec, *, mode, positions=None, cache=None,
                      pos=None, max_len=None, true_len=None, pages=None):
         cfg = self.cfg
-        if spec.mixer == "attn" and mode == "train":
+        if spec.mixer != "rwkv" and mode == "train":
             raise NotImplementedError(
-                "training attention layers is not ported yet (its backward "
-                "through the flash oracle is a later slice, ROADMAP Queue A)")
+                f"training attention and Mamba layers is not ported yet, got "
+                f"mixer={spec.mixer!r} (attention's backward through the flash "
+                f"oracle and the selective scan's backward are a later slice, "
+                f"ROADMAP Queue A)")
         if spec.mixer != "attn" and (mode == "decode_paged" or true_len is not None):
             raise NotImplementedError(
                 f"paged decode / bucketed (true_len) prefill support attention "
@@ -130,7 +146,13 @@ class DecoderLM:
         if spec.mixer == "rwkv":
             return self._apply_rwkv_layer(lp, x, mode=mode, cache=cache)
         h = apply_norm(lp["norm1"], x, cfg)
-        if mode == "prefill":
+        if spec.mixer == "mamba":
+            if mode == "prefill":
+                y, new_cache = M.mamba_prefill(lp["mamba"], h, cfg, plain=self.plain)
+            else:
+                y, new_cache = M.mamba_decode(lp["mamba"], h, cache, cfg,
+                                              plain=self.plain)
+        elif mode == "prefill":
             y, new_cache = A.attn_prefill(lp["attn"], h, cfg, spec, positions,
                                           max_len=max_len, true_len=true_len,
                                           plain=self.plain)
@@ -235,18 +257,27 @@ class DecoderLM:
     def init_cache(self, batch: int, max_len: int, device=None):
         """Dense per-layer caches: attention k/v (batch, L, KV, hd) and pos
         (batch, L); RWKV shift_tm/shift_cm (batch, d) and wkv (batch, H, hd,
-        hd) f32."""
+        hd) f32; Mamba conv (batch, W-1, d_inner) and ssm (batch, d_inner, N)
+        f32."""
         device = resolve_device(device)
-        return [R.init_rwkv_cache(self.cfg, batch, self.dtype, device)
-                if spec.mixer == "rwkv" else
-                A.init_cache_entry(self.cfg, spec, batch, max_len, self.dtype,
-                                   device) for spec in self.layer_specs]
+        cfg, dt = self.cfg, self.dtype
+        caches = []
+        for spec in self.layer_specs:
+            if spec.mixer == "rwkv":
+                caches.append(R.init_rwkv_cache(cfg, batch, dt, device))
+            elif spec.mixer == "mamba":
+                caches.append(M.init_mamba_cache(cfg, batch, dt, device))
+            else:
+                caches.append(A.init_cache_entry(cfg, spec, batch, max_len, dt,
+                                                 device))
+        return caches
 
     def init_paged_cache(self, n_phys_blocks: int, block_size: int,
                          quant: Optional[str] = None, device=None):
         """Per-layer paged KV pools (block ids owned by
         ``repro_torch.runtime.paging.PageAllocator``). Attention-only
-        stacks: RWKV state is not positional and stays on the dense path."""
+        stacks: RWKV and Mamba state is not positional and stays on the
+        dense path."""
         for spec in self.layer_specs:
             if spec.mixer != "attn":
                 raise NotImplementedError(

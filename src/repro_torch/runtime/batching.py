@@ -24,12 +24,14 @@ Gathering a slot's pages reproduces its dense cache exactly, so both layouts
 generate identical tokens (on the card too: the dense and paged decode
 kernels share one device routine).
 
-A stack with RWKV layers runs dense only (paged raises
-``NotImplementedError``, as in the reference) with one exact-length prefill
-per prompt length. Its slot row holds the recurrent state (``shift_tm``,
-``shift_cm``, ``wkv``), which ``kv_cache_bytes`` counts. Free slots keep
-decoding on stale tokens, which is harmless because admission overwrites
-every entry of the row.
+A stack that is not pure attention (RWKV-6, or jamba's Mamba/attention
+hybrid) runs dense only (paged raises ``NotImplementedError``, as in the
+reference) with one exact-length prefill per prompt length. Its slot row
+holds the recurrent state (RWKV's ``shift_tm``, ``shift_cm``, ``wkv``;
+Mamba's ``conv`` and ``ssm``) beside any attention layer's K/V, and
+``kv_cache_bytes`` counts all of it. Free slots keep decoding on stale
+tokens, which is harmless because admission overwrites every entry of the
+row.
 
 The port has no compiler cache to key; ``prefill_compiles`` counts distinct
 prefill buckets (one entry of ``_prefills`` each), the quantity the
@@ -356,7 +358,8 @@ class ContinuousBatcher:
 
     def kv_cache_bytes(self) -> int:
         """Resident KV-cache bytes of the current layout (pool tensors for
-        paged, the stacked slot caches for dense, RWKV state included)."""
+        paged, the stacked slot caches for dense, RWKV and Mamba state
+        included)."""
         caches = self.pools if self.kv_layout == "paged" else self.cache_slots
         return sum(t.numel() * t.element_size()
                    for entry in caches for t in entry.values())

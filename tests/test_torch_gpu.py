@@ -2,7 +2,8 @@
 PyTorch version on the same CUDA inputs, at the reference's tolerances
 (attention: atol 2e-5 for f32 and int8-dequantised pools, 2e-2 for bf16;
 the RWKV-6 scan: atol = rtol = 1e-3, its inputs widened to f32 exactly; its
-backward: 1e-4 for f32 outputs, 2e-2 for bf16 ones).
+backward: 1e-4 for f32 outputs, 2e-2 for bf16 ones; the Mamba selective
+scan: atol = rtol = 1e-4, all f32).
 
 Needs a CUDA device and ``nvcc``; the ``cuda`` fixture skips every test here
 otherwise (decided inside the fixture, never at import, so every xdist
@@ -26,6 +27,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd, rwkv6_scan_fwd
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
+from repro_torch.kernels.ssm_scan.kernel import ssm_scan_fwd
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.optim.compress import quantize_int8
 
 pytestmark = pytest.mark.gpu
@@ -436,3 +440,114 @@ def test_rwkv_train_step_kernel_path_matches_plain_path(cuda):
             assert LAUNCHES["rwkv6_scan"] == 2 * n and LAUNCHES["rwkv6_scan_bwd"] == n
             assert PLAIN_CALLS["rwkv6_scan"] == PLAIN_CALLS["rwkv6_scan_bwd"] == 0
     np.testing.assert_allclose(losses[False], losses[True], atol=5e-4, rtol=5e-4)
+
+
+# ------------------------------------------------- Mamba selective scan (B4)
+
+SSM_TOL = 1e-4  # the reference's SSM tolerance (tests/test_kernels.py)
+
+
+def _ssm_case(gen, dev, B, S, Di, N):
+    """Inputs as the model makes them: dt > 0 (a softplus), A < 0 in the
+    S4D-real init's range, unit-scale x, B, C, D and a nonzero h0."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    dt = torch.nn.functional.softplus(randn(B, S, Di) - 1.0)
+    A = -(0.5 + 15.5 * torch.rand((Di, N), generator=gen, device=dev))
+    return (randn(B, S, Di), dt, A, randn(B, S, N), randn(B, S, N), randn(Di),
+            0.5 * randn(B, Di, N))
+
+
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("Di", [256, 16384])
+@pytest.mark.parametrize("S", [1, 37, 64, 130, 1000])
+@pytest.mark.parametrize("B", [1, 4])
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, Di, N):
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    args = _ssm_case(gen, cuda, B, S, Di, N)
+    reset_counts()
+    y, hT = ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssm_scan"] == 1 and PLAIN_CALLS["ssm_scan"] == 0
+    y_ref, hT_ref = ssm_scan_ref(*args)
+    torch.testing.assert_close(y, y_ref, atol=SSM_TOL, rtol=SSM_TOL)
+    torch.testing.assert_close(hT, hT_ref, atol=SSM_TOL, rtol=SSM_TOL)
+
+
+@pytest.mark.parametrize("S", [1, 37])
+def test_ssm_scan_kernel_in_place_state_and_bitwise_repeatable(cuda, S):
+    """``state_out=h0`` (a decode step updating its cache) gives the
+    out-of-place result bit for bit, and two runs agree bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x, dt, A, Bc, Cc, D, h0 = _ssm_case(gen, cuda, 4, S, 16384, 16)
+    y, hT = ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0)
+    y_again, hT_again = ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0)
+    assert torch.equal(y, y_again) and torch.equal(hT, hT_again)
+    state = h0.clone()
+    y2, h2 = ssm_scan_fwd(x, dt, A, Bc, Cc, D, state, state_out=state)
+    assert h2 is state
+    assert torch.equal(y2, y) and torch.equal(state, hT)
+
+
+def test_ssm_scan_kernel_chained_calls_equal_one_call(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    x, dt, A, Bc, Cc, D, h0 = _ssm_case(gen, cuda, 2, 150, 512, 16)
+    y, hT = ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0)
+    h = 70  # not a multiple of the kernel's 16-step chunk
+    cut = [t[:, :h].contiguous() for t in (x, dt, Bc, Cc)]
+    rest = [t[:, h:].contiguous() for t in (x, dt, Bc, Cc)]
+    y1, h1 = ssm_scan_fwd(cut[0], cut[1], A, cut[2], cut[3], D, h0)
+    y2, h2 = ssm_scan_fwd(rest[0], rest[1], A, rest[2], rest[3], D, h1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, hT)
+
+
+def test_ssm_scan_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    x, dt, A, Bc, Cc, D, h0 = _ssm_case(gen, cuda, 1, 8, 64, 16)
+    with pytest.raises(ValueError, match="state dim"):
+        ssm_scan_fwd(x, dt, A[:, :4].contiguous(), Bc[..., :4].contiguous(),
+                     Cc[..., :4].contiguous(), D, h0[..., :4].contiguous())
+    with pytest.raises(TypeError):
+        ssm_scan_fwd(x.bfloat16(), dt, A, Bc, Cc, D, h0)
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)  # x's shape, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan_fwd(strided, dt, A, Bc, Cc, D, h0)
+    with pytest.raises(ValueError, match="shapes"):
+        ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0[:, :32])
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0.cpu())
+    with pytest.raises(NotImplementedError):
+        ssm_scan(x.clone().requires_grad_(True), dt, A, Bc, Cc, D, h0)
+
+
+def test_jamba_decoder_kernel_path_matches_plain_path(cuda):
+    """jamba smoke config without experts (14 Mamba and 2 attention layers)
+    in f32 on the card: prefill (S=37) and three decode steps, kernel path
+    against the plain path, within 2e-4 of max |logit| (the two differ only
+    in the kernels' summation order)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+
+    cfg = smoke_config("jamba-1.5-large-398b").replace(
+        moe_period=0, num_experts=0, experts_per_token=0)
+    kern, plain = build_model(cfg), build_model(cfg, plain=True)
+    params = kern.init(torch.Generator(device=cuda).manual_seed(34), device=cuda)
+    toks = torch.randint(1, cfg.vocab_size, (2, 37), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(35))
+    reset_counts()
+    with torch.inference_mode():
+        lk, ck = kern.prefill(params, tokens=toks, max_len=64)
+        lp, cp = plain.prefill(params, tokens=toks, max_len=64)
+        for step in range(4):
+            scale = lp.abs().max()
+            assert (lk - lp).abs().max() <= 2e-4 * scale, step
+            if step == 3:
+                break
+            tok = torch.argmax(lp, -1)[:, None]
+            lk, ck = kern.decode_step(params, ck, tokens=tok, pos=37 + step)
+            lp, cp = plain.decode_step(params, cp, tokens=tok, pos=37 + step)
+    n_mamba = [s.mixer for s in kern.layer_specs].count("mamba")
+    assert n_mamba == 14
+    assert LAUNCHES["ssm_scan"] == PLAIN_CALLS["ssm_scan"] == 4 * n_mamba
+    assert LAUNCHES["flash_attention"] == 2 and LAUNCHES["decode_attention"] == 6

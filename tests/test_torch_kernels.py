@@ -44,6 +44,8 @@ from repro_torch.kernels.rwkv6_scan.kernel import (  # noqa: E402
     Rwkv6BwdParams, Rwkv6Params, rwkv6_scan_bwd, rwkv6_scan_fwd)
 from repro_torch.kernels.rwkv6_scan.ref import CHECKPOINT  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
+from repro_torch.kernels.ssm_scan.kernel import SsmParams, ssm_scan_fwd  # noqa: E402
+from repro_torch.kernels.ssm_scan.ops import ssm_scan  # noqa: E402
 from repro_torch.optim.compress import dequantize_int8, quantize_int8  # noqa: E402
 
 NEG_INF = -2.3819763e38
@@ -238,6 +240,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         rwkv6_scan(m, m, m, m, torch.zeros(2, 32).to("meta"),
                    torch.zeros(1, 2, 32, 32).to("meta"))
+    x, A, bc, h0 = (torch.zeros(1, 4, 32), torch.zeros(32, 16),
+                    torch.zeros(1, 4, 16), torch.zeros(1, 32, 16))
+    with pytest.raises(ValueError):
+        ssm_scan_fwd(x, x, A, bc, bc, torch.zeros(32), h0)
+    with pytest.raises(ValueError):
+        ssm_scan(*(t.to("meta") for t in (x, x, A, bc, bc, torch.zeros(32), h0)))
 
 
 _CTYPE_SIZES = {"const void*": 8, "void*": 8, "const float*": 8, "float*": 8,
@@ -249,6 +257,7 @@ _CTYPE_SIZES = {"const void*": 8, "void*": 8, "const float*": 8, "float*": 8,
     ("decode_attention.cu", "DecodeParams", DecodeParams),
     ("rwkv6_scan.cu", "Rwkv6Params", Rwkv6Params),
     ("rwkv6_scan.cu", "Rwkv6BwdParams", Rwkv6BwdParams),
+    ("ssm_scan.cu", "SsmParams", SsmParams),
 ])
 def test_ctypes_struct_mirrors_cuda_source(src, struct, mirror):
     """The C entries take a pointer to a parameter struct; its ctypes mirror

@@ -24,6 +24,7 @@ from repro.models import mlp as JM  # noqa: E402
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import PLAIN_CALLS, reset_counts  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import common as C  # noqa: E402
@@ -43,7 +44,7 @@ def _close(t, j, atol=TOL):
                                atol=atol, rtol=atol)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-3b"])
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-3b", "jamba-1.5-large-398b"])
 def test_config_copies_equal_reference(arch):
     """The port keeps its own copies of ModelConfig / the arch configs /
     smoke_config; they equal the reference field for field."""
@@ -273,8 +274,13 @@ def test_decoder_bucketed_prefill_and_paged_decode_match_reference(arch):
 
 
 def test_decoder_refuses_unported_mixers_and_default_device():
-    with pytest.raises(NotImplementedError):
-        build_model(smoke_config("starcoder2-3b").replace(mixer_pattern=("mamba",)))
+    """MoE layers are not ported: a jamba config with its experts raises,
+    naming MoE, in ``build_model`` and in the serving launcher. Entry
+    points default to cuda and raise without a card."""
+    with pytest.raises(NotImplementedError, match="MoE"):
+        build_model(smoke_config("jamba-1.5-large-398b"))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        serve_main(["--arch", "jamba-1.5-large-398b", "--smoke", "--device", "cpu"])
     m = build_model(smoke_config("starcoder2-3b"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
