@@ -12,8 +12,9 @@ checkout of the repository. Phases (none catches its own failure):
 2. kernels — each hand-written kernel against its plain PyTorch version on
    the card at full-width shapes. Attention at starcoder2-3b's (H=24, KV=2,
    hd=128, bs=16, B=4, L=4096; flash S=4608, window 4096), and at
-   jamba-1.5-large-398b's (H=64, KV=8, hd=128, bf16; flash S=4500 global,
-   dense decode B=4 over 8192 slots), plus softcap=50
+   jamba-1.5-large-398b's (H=64, KV=8, hd=128, bf16; flash S=4500 global
+   and S=1024 global, its training microbatch; dense decode B=4 over 8192
+   slots), plus softcap=50
    and hd=256 cases; tolerances atol 2e-5 for f32 and int8-dequantised
    pools, 2e-2 for bf16. The RWKV-6 scan at rwkv6-3b's (H=40, hd=64): a
    4500-token prefill and a 4-slot decode step in bf16, an f32 prefill, and
@@ -41,7 +42,7 @@ checkout of the repository. Phases (none catches its own failure):
 4. f32 model check — starcoder2-3b, rwkv6-3b and jamba full width in
    f32: prefill logits of a 513-token prompt and the 4 dense decode steps
    after it, kernel path against the plain path on the card, within 2e-4
-   of max |logit|. jamba runs one 8-layer block here (``JAMBA_F32``: 7
+   of max |logit|. jamba runs one 8-layer block here (``JAMBA_BLOCK``: 7
    Mamba layers and 1 attention layer, 9.0 B parameters, 36.0 GB in f32):
    its 16 serving layers would take 68 GB in f32;
 5. training — full-width rwkv6-3b in bf16 through ``ElasticTrainer``:
@@ -53,20 +54,37 @@ checkout of the repository. Phases (none catches its own failure):
    disk). Counts zeroed before the run:
    3 x 2 x 32 x 2 = 384 scan launches (forward and remat recompute), 192
    backward launches, no plain call; finite losses; step time, tokens/s,
-   peak memory and the device's busy share of one step;
+   peak memory and the device's busy share of one step. Then one
+   full-width jamba block (``JAMBA_BLOCK``, bf16, 18.0 GB) with the
+   config's bf16 gradient accumulation and int8 moments: global batch
+   8 x 1024 tokens in its 8 microbatches, remat "full", 3 steps, no
+   revocation and no checkpoint written (its state is 36 GB more). Counts:
+   3 x 8 x 7 x 2 = 336 B4, 3 x 8 x 7 = 168 B6, 3 x 8 x 1 x 2 = 48 B2
+   launches, 24 attention backward calls, no plain call;
 6. f32 gradient check — full-width rwkv6-3b in f32, one 130-token sequence
    (a ragged last checkpoint chunk), within 2e-4 of each output's max:
    at full depth, every layer's B5 and B7 outputs on that layer's own
    inputs and incoming gradient against the plain versions; at depth 1,
-   every parameter leaf, kernel path against plain path. Every leaf at
-   full depth is printed beside the same gap with no kernel involved
-   (``grad_phase`` says why it is not held).
+   every parameter leaf, kernel path against plain path; every leaf at
+   full depth within DEPTH_RATIO of the plain path's distance from an
+   f64-scan path (``grad_phase`` says why). Then the jamba block in f32
+   (36.0 GB): every Mamba layer's B4 and B6 and the attention layer's B2
+   and backward in place, and every mixer leaf, kernel path against plain
+   path (``jamba_grad_phase``).
 
-Phase 2 also holds the scan's backward (B7) against its plain version at
-the training microbatch (B=2, H=40, S=2048, hd=64, bf16 r/k/v in the
-model's layout), in f32 and at ragged S = 37 and 130, with nonzero s0 and
-dsT; tolerance atol = rtol = 1e-4 for f32 outputs, 2e-2 for bf16 ones (the
-reference's backward and bf16 tolerances), and two runs bitwise equal.
+``--jamba-grad-study SEED [SEED ...]`` builds the kernels and runs only
+``jamba_grad_phase`` for each seed, printing how far each mixer leaf lies
+from an f64 path under five mixes of kernels and plain versions; it prints
+no smoke result.
+
+Phase 2 also holds the scans' backward kernels against their plain
+versions at the training microbatches, with nonzero initial and final
+state gradients, at ragged S = 37 and 130, two runs bitwise equal: B7 at
+rwkv6-3b's (B=2, H=40, S=2048, hd=64, bf16 r/k/v in the model's layout,
+and f32), B6 at jamba's (B=1, S=1024, Di=16384, N=16, f32, and N=8) with
+B4's ``save_states`` checkpoints held first; tolerance atol = rtol = 1e-4
+for f32 outputs, 2e-2 for bf16 ones (the reference's backward and bf16
+tolerances).
 
 TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN). Every
 phase releases what it allocated; the script checks that less than 1 GB is
@@ -96,7 +114,7 @@ RWKV_ARCH = "rwkv6-3b"
 JAMBA_ARCH = "jamba-1.5-large-398b"
 NO_MOE = dict(moe_period=0, num_experts=0, experts_per_token=0)
 JAMBA_SERVE = dict(num_layers=16, **NO_MOE)   # 2 of 9 blocks, bf16: 33.86 GB
-JAMBA_F32 = dict(num_layers=8, **NO_MOE)      # 1 block, f32: 36.0 GB
+JAMBA_BLOCK = dict(num_layers=8, **NO_MOE)    # 1 block: 9.0 B params, 18.0 GB bf16, 36.0 GB f32
 LEFT_OVER_BYTES = 1 << 30     # allocated memory a phase may find on entry
 PROMPT_LENS = (17, 100, 513, 1000, 2047, 4500, 31, 250)
 MAX_NEW = 24
@@ -104,7 +122,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # backward outputs, by dtype
 DEPTH_RATIO = 4               # full-depth leaf: kernel path's distance from the
                               # f64-scan path over the plain f32 path's
-REF_CHUNK = 64                # the TPU scan's default chunk (B5/B7)
+REF_CHUNK = 64                # the TPU scan's default chunk (B4-B7)
+TRAIN_BATCH_JAMBA, TRAIN_SEQ_JAMBA = 8, 1024  # the config's 8 microbatches of 1 row
 
 
 def log(*a):
@@ -194,10 +213,11 @@ def _prefixed(prefix, row):
     return {prefix + k: v for k, v in row.items()}
 
 
-def _log_shape_row(label, row):
-    log(f"  {label}: ms={row['jamba_ms']:.4f} plain_ms={row['jamba_plain_ms']:.4f} "
-        f"library_ms={row['jamba_library_ms']:.4f} bound_ms={row['jamba_bound_ms']:.5f} "
-        f"({row['jamba_bound_by']}) at {row['jamba_shape']}")
+def _log_shape_row(label, row, prefix="jamba_"):
+    log(f"  {label}: ms={row[prefix + 'ms']:.4f} plain_ms={row[prefix + 'plain_ms']:.4f} "
+        f"library_ms={row[prefix + 'library_ms']:.4f} "
+        f"bound_ms={row[prefix + 'bound_ms']:.5f} ({row[prefix + 'bound_by']}) "
+        f"at {row[prefix + 'shape']}")
 
 
 def kernel_phase(dev):
@@ -257,6 +277,25 @@ def kernel_phase(dev):
         **bound(nbytes(q, k, v, o), 4 * B * JH * hd * flash_pairs(JS, 0), "bfloat16"),
         shape=f"B={B} H={JH} KV={JKV} S={JS} hd={hd} global bf16")))
     _log_shape_row("flash_attention jamba", rows["flash_attention"])
+    rows["flash_attention"]["max_abs_err"] = max(err, rows["flash_attention"]["max_abs_err"])
+    del q, k, v, o
+    # the same layer on jamba's training path: one microbatch row of
+    # TRAIN_SEQ_JAMBA tokens, bf16 (the forward and its remat recompute)
+    q, k, v = (randn((B, TRAIN_SEQ_JAMBA, n, hd), bf16).transpose(1, 2)
+               for n in (JH, JKV, JKV))
+    o = flash_attention_fwd(q, k, v)
+    err = _check(f"flash bf16 jamba H={JH} KV={JKV} S={TRAIN_SEQ_JAMBA} global", o,
+                 attention_ref(q, k, v), tol[bf16])
+    rows["flash_attention"].update(_prefixed("train_", dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: flash_attention_fwd(q, k, v), 10),
+        plain_ms=time_ms(lambda: attention_ref(q, k, v), 5),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10),
+        **bound(nbytes(q, k, v, o), 4 * B * JH * hd * flash_pairs(TRAIN_SEQ_JAMBA, 0),
+                "bfloat16"),
+        shape=f"B={B} H={JH} KV={JKV} S={TRAIN_SEQ_JAMBA} hd={hd} global bf16")))
+    _log_shape_row("flash_attention jamba training", rows["flash_attention"], "train_")
     rows["flash_attention"]["max_abs_err"] = max(err, rows["flash_attention"]["max_abs_err"])
     del q, k, v, o
     q, k, v = (randn((1, 1024, n, hd), bf16).transpose(1, 2) for n in (H, KV, KV))
@@ -685,6 +724,90 @@ def ssm_kernel_phase(dev):
     return {"ssm_scan": row}
 
 
+def ssm_bwd_kernel_phase(dev):
+    """B6 at jamba's training microbatch (B=1, S=1024, Di=16384, N=16, all
+    f32), inputs as the model makes them and nonzero h0 and dhT, the
+    checkpoints from B4's save_states; then ragged S = 37 and 130 (B=2) and
+    N = 8; two runs bitwise equal. B4's checkpoints are held against the
+    plain forward's first. Tolerance: the reference's backward atol = rtol =
+    1e-4 (tests/test_kernels.py); both sides compute in f32 from the same
+    inputs and checkpoints and differ in summation order and the
+    exponential's rounding."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_bwd, ssm_scan_fwd
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7654)
+    tol = BWD_TOL["float32"]
+    Di = 16384
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+    def case(B, S, N):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        dt = F.softplus(randn(B, S, Di) - 1.0)
+        A = -(0.5 + 15.5 * torch.rand((Di, N), generator=gen, device=dev))
+        fwd = (randn(B, S, Di), dt, A, randn(B, S, N), randn(B, S, N), randn(Di),
+               0.5 * randn(B, Di, N))
+        return fwd, randn(B, S, Di), 0.5 * randn(B, Di, N)
+
+    def check(label, fwd, dy, dhT):
+        y, hT, starts = ssm_scan_fwd(*fwd, save_states=True)
+        y_ref, _, starts_ref = ssm_scan_ref(*fwd, save_states=True)
+        _check(f"{label} B4 y", y, y_ref, tol)
+        _check(f"{label} B4 checkpoints", starts, starts_ref, tol)
+        args = (*fwd[:6], dy, starts, dhT)
+        got = ssm_scan_bwd(*args)
+        ref = ssm_scan_bwd_ref(*args)
+        return args, got, starts, max(_check(f"{label} {n}", a, b, tol)
+                                      for n, a, b in zip(names, got, ref))
+
+    def flops(B, S, N):
+        # per (d, n, t): the replay's 5 (dt*A, exp, dt x * B and its FMA)
+        # and the backward's 20; ~9 per (d, t) (see ssm_scan.cu)
+        return B * S * Di * (25 * N + 9)
+
+    log("kernel phase: ssm_scan_bwd (B6)")
+    B, S, N = 1, TRAIN_SEQ_JAMBA, 16
+    fwd, dy, dhT = case(B, S, N)
+    args, got, starts, err = check(f"ssm bwd f32 B={B} S={S} Di={Di} N={N}", fwd, dy, dhT)
+    again = ssm_scan_bwd(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("ssm_scan_bwd: two runs differ")
+    log("  ssm bwd: two runs bitwise equal")
+    ref_starts = ref_chunk_bytes(B, 1, S, Di * N)  # at the reference's 64-step chunk
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ssm_scan_bwd(*args), 10),
+        plain_ms=time_ms(lambda: ssm_scan_bwd_ref(*args), 1, warmup=1),
+        library_ms=None,  # no single PyTorch call computes the selective-scan backward
+        **bound(nbytes(*args[:7], dhT, *got) + ref_starts, flops(B, S, N), "float32"),
+        shape=f"B={B} S={S} Di={Di} N={N}, f32, checkpoints every 8 steps")
+    x, h0 = fwd[0], fwd[6]  # y is shaped like x, hT like h0
+    train_bound = bound(nbytes(*fwd, x, h0) + ref_starts, B * S * Di * (7 * N + 3),
+                        "float32")
+    b4 = dict(
+        train_ms=time_ms(lambda: ssm_scan_fwd(*fwd, save_states=True), 10),
+        train_bound_ms=train_bound["bound_ms"], train_bound_by=train_bound["bound_by"],
+        train_shape=f"B={B} S={S} Di={Di} N={N} save_states, f32")
+    extra = nbytes(starts) - ref_starts
+    log(f"  ssm bwd ms={row['ms']:.4f} plain_ms={row['plain_ms']:.2f} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); library: none; B4 with "
+        f"save_states ms={b4['train_ms']:.4f} bound_ms={b4['train_bound_ms']:.4f} "
+        f"({b4['train_bound_by']}); the port's 8-step checkpoints are {extra / 1e6:.1f} MB "
+        f"more than the reference's 64-step chunk, written by B4 and read by B6 "
+        f"({1e3 * extra / HBM_BYTES_PER_S:.4f} ms each at the memory rate)")
+    del fwd, dy, dhT, args, got, again, starts, x, h0
+    for B, S, N in ((2, 37, 16), (2, 130, 16), (2, 130, 8), (1, 1, 8)):
+        *_, e = check(f"ssm bwd f32 B={B} S={S} N={N}", *case(B, S, N))
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+    torch.cuda.empty_cache()
+    return row, b4
+
+
 def kernel_device_ms(fn, n, kernel, op):
     """Mean device time per launch of the CUDA kernels whose name holds
     ``kernel``, from torch.profiler over ``n`` calls of ``fn``, each of
@@ -969,31 +1092,56 @@ def f32_phase(dev, seed, cfg):
 # phase 5: full-width training through ElasticTrainer
 
 
-def train_phase(dev, seed):
-    """rwkv6-3b, bf16, global batch TRAIN_BATCH x TRAIN_SEQ in the config's
-    microbatches, remat as configured ("full"), TRAIN_STEPS steps, one
-    revocation before step 1; the counts zeroed just before the run and
-    read just after."""
+def expected_train_counts(model, n_microbatch_steps):
+    """Kernel launches and backward calls one training run must make: per
+    microbatch, every scan and attention layer's forward once, twice under
+    remat "full" (the recompute), and its backward once."""
+    fwd = 2 if model.cfg.remat == "full" else 1
+    mixers = [s.mixer for s in model.layer_specs]
+    launches, bwd_calls = {}, {}
+    for mixer, name, bwd in (("rwkv", "rwkv6_scan", "rwkv6_scan_bwd"),
+                             ("mamba", "ssm_scan", "ssm_scan_bwd"),
+                             ("attn", "flash_attention", None)):
+        n = n_microbatch_steps * mixers.count(mixer)
+        if n:
+            launches[name] = fwd * n
+            if bwd:
+                launches[bwd] = n
+            else:
+                bwd_calls["flash_attention_bwd"] = n
+    return launches, bwd_calls
+
+
+def train_phase(dev, seed, cfg, batch_rows, seq, preempt_at):
+    """``cfg`` at full width in bf16, global batch ``batch_rows`` x ``seq``
+    in the config's microbatches, remat as configured, TRAIN_STEPS steps at
+    a constant learning rate, the revocations ``preempt_at``; the counts
+    zeroed just before the run and read just after. The run writes at most
+    one checkpoint, the first revocation's: the trainer's closing
+    checkpoint, and any after the first, are logged and not written."""
     import numpy as np
     import torch
 
     from repro_torch.checkpoint import Checkpointer
-    from repro_torch.configs import get_config
     from repro_torch.data import SyntheticBatches
-    from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from repro_torch.kernels import (BWD_CALLS, KERNEL_NAMES, LAUNCHES, PLAIN_CALLS,
+                                     reset_counts)
     from repro_torch.models.decoder import DecoderLM
     from repro_torch.optim import AdamW
     from repro_torch.optim.schedule import constant_schedule
     from repro_torch.runtime.elastic import ElasticTrainer
 
-    class OnceCheckpointer(Checkpointer):
-        """Writes the revocation's checkpoint and no later one: a full-width
-        state is 31 GB, and this run keeps its disk writes to one state.
-        The closing save of ``ElasticTrainer.run`` is logged, not written."""
+    n_writes = min(1, len(preempt_at))
+
+    class FewCheckpointer(Checkpointer):
+        """Writes the first ``n_writes`` checkpoints and no later one: a
+        full-width state is 31 GB (rwkv6-3b) or 36 GB (one jamba block),
+        and a run keeps its disk writes to one state."""
 
         def save(self, step, state, *, blocking=False):
-            if self.all_steps():
-                log(f"  checkpoint at step {step} not written (one per smoke run)")
+            if len(self.all_steps()) >= n_writes:
+                log(f"  checkpoint at step {step} not written (at most {n_writes} "
+                    f"per smoke run)")
                 return
             t0 = time.perf_counter()
             super().save(step, state, blocking=blocking)
@@ -1030,48 +1178,53 @@ def train_phase(dev, seed):
             self.rescale_ms.append(1e3 * (time.perf_counter() - t0))
             return state
 
-    check_released(dev, "training")
-    cfg = get_config(RWKV_ARCH)
-    M, L = cfg.num_microbatches, cfg.num_layers
-    log(f"train phase: {RWKV_ARCH} full width {cfg.dtype}, batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} in {M} microbatches, remat={cfg.remat}, {TRAIN_STEPS} steps, "
-        f"revocation before step 1")
+    check_released(dev, f"training {cfg.name}")
+    M = cfg.num_microbatches
+    log(f"train phase: {cfg.name} full width {cfg.dtype}, {cfg.num_layers} layers "
+        f"(mixers {[s.mixer for s in DecoderLM(cfg).layer_specs[:8]]}...), "
+        f"moe_period={cfg.moe_period}, batch {batch_rows} x {seq} in {M} microbatches, "
+        f"remat={cfg.remat}, grad_acc={cfg.grad_acc_dtype}, moments="
+        f"{cfg.opt_moments_dtype}, {TRAIN_STEPS} steps, revocations {preempt_at}")
     model = DecoderLM(cfg)
     opt = AdamW(lr=constant_schedule(1e-4), moments_dtype=cfg.opt_moments_dtype)
-    data = SyntheticBatches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    data = SyntheticBatches(cfg, batch_rows, seq, seed=seed)
+    want, want_bwd = expected_train_counts(model, TRAIN_STEPS * M)
+    want = {name: want.get(name, 0) for name in KERNEL_NAMES}
+    want_bwd = {name: want_bwd.get(name, 0) for name in BWD_CALLS}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
         free = shutil.disk_usage(ckdir).free
         log(f"  checkpoints to a temporary directory, {free / 1e9:.1f} GB free")
-        trainer = TimedTrainer(model, opt, data, OnceCheckpointer(ckdir, keep=1),
+        trainer = TimedTrainer(model, opt, data, FewCheckpointer(ckdir, keep=1),
                                devices=[dev], log=lambda m: log(f"  {m}"))
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = trainer.run(TRAIN_STEPS, seed=seed, preempt_at={1: 1},
+        state = trainer.run(TRAIN_STEPS, seed=seed, preempt_at=preempt_at,
                             checkpoint_every=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+        counts, plain, bwd = dict(LAUNCHES), dict(PLAIN_CALLS), dict(BWD_CALLS)
         peak = torch.cuda.max_memory_allocated(dev)
     losses = [h[1] for h in trainer.history]
-    if [h[0] for h in trainer.history] != list(range(TRAIN_STEPS)) or trainer.rescales != 1:
+    if ([h[0] for h in trainer.history] != list(range(TRAIN_STEPS))
+            or trainer.rescales != len(preempt_at)):
         raise AssertionError(f"train: history {trainer.history}, rescales {trainer.rescales}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train: non-finite losses {losses}")
-    want = {"rwkv6_scan": TRAIN_STEPS * M * L * 2, "rwkv6_scan_bwd": TRAIN_STEPS * M * L}
-    got = {k: counts[k] for k in want}
-    if got != want or sum(plain.values()):
-        raise AssertionError(f"train: launches {got} (want {want}), plain calls {plain}")
+    if counts != want or bwd != want_bwd or sum(plain.values()):
+        raise AssertionError(f"train: launches {counts} (want {want}), backward calls "
+                             f"{bwd} (want {want_bwd}), plain calls {plain}")
     steps_ms = list(trainer.step_ms)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_rows * seq
     summary = dict(
         losses=losses, step_ms=steps_ms,
         tokens_per_s=[tokens / (ms / 1e3) for ms in steps_ms],
-        revocation_ms=trainer.rescale_ms[0],
-        run_overhead_ms=1e3 * wall - sum(steps_ms)
-        - trainer.rescale_ms[0],
-        max_memory_allocated=peak, launches=got, plain_calls=0)
+        revocation_ms=trainer.rescale_ms,
+        run_overhead_ms=1e3 * wall - sum(steps_ms) - sum(trainer.rescale_ms),
+        max_memory_allocated=peak,
+        launches={k: n for k, n in counts.items() if n}, backward_calls=bwd,
+        plain_calls=0)
     log(f"  {json.dumps(summary)}")
     batch = data.batch(TRAIN_STEPS)
     prof = decode_profile(lambda: trainer.step_fn(state, batch), n=1)
@@ -1087,12 +1240,15 @@ def train_phase(dev, seed):
 # phase 6: full-width f32 gradients, kernel path vs plain path
 
 
-def _leaf_gaps(paths, got, ref):
-    """(max|got - ref| / max|ref|, leaf) per leaf, worst first."""
+def _leaf_gaps(paths, got, ref, device=None):
+    """(max|got - ref| / max|ref|, leaf) per leaf, worst first; each pair
+    of leaves is compared on ``device`` where one is given."""
     from repro_torch.tree import key
 
     out = []
     for path, a, b in zip(paths, got, ref):
+        if device is not None:
+            a, b = a.to(device), b.to(device)
         scale = b.abs().max().item()
         diff = (a - b).abs().max().item()
         out.append((diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf")),
@@ -1247,12 +1403,257 @@ def grad_phase(dev, seed):
     return worst, ratio[0][0]
 
 
+def jamba_grad_phase(dev, seed, study=False):
+    """f32 gradients of one full-width jamba block (JAMBA_BLOCK: 7 Mamba
+    layers and 1 attention layer, 9.0 B parameters, 36.0 GB), one 130-token
+    sequence (a ragged last checkpoint chunk), within 2e-4 of each output's
+    max:
+
+    (a) every Mamba layer's scan as the kernel path ran it, B4 (with its
+        checkpoints) and B6, against the plain versions on that layer's own
+        inputs and incoming gradient; the attention layer's B2 output and
+        its backward's dq, dk, dv against autograd through the plain
+        attention on its own q, k, v and incoming gradient;
+    (b) every leaf of the 7 Mamba and 1 attention mixers (3.09 B
+        parameters, 12.4 GB of f32 gradient a path), kernel path against
+        plain path; the other leaves take no gradient, so both paths'
+        gradients fit beside the parameters.
+
+    ``study`` (``--jamba-grad-study``, not part of the smoke run) also
+    prints, for (a), each kernel's and plain version's distance from
+    float64 on the same inputs, and for (b) each mixer leaf's distance
+    from an f64 path (the kernel model with its scans and attention
+    computed in float64) for five paths: kernels throughout, the plain
+    model, the scan kernels with plain attention, plain scans with the
+    attention kernel, and the scan op running its plain versions (B4's and
+    B6's algorithm in plain code) with plain attention, so that each
+    kernel's share of (b) shows. It checks only after printing them."""
+    import torch
+
+    import repro_torch.kernels.ssm_scan.ops as SO
+    import repro_torch.models.attention as A
+    import repro_torch.models.mamba as M
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import BWD_CALLS, LAUNCHES, reset_counts
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_bwd, ssm_scan_fwd
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.tree import leaves_with_paths, unflatten
+
+    check_released(dev, "the jamba gradient phase")
+    S = 130
+    cfg = get_config(JAMBA_ARCH).replace(dtype="float32", param_dtype="float32",
+                                         **JAMBA_BLOCK)
+    tokens = torch.as_tensor(SyntheticBatches(cfg, 1, S, seed=seed).batch(0)["tokens"],
+                             device=dev)
+    kern, plain = DecoderLM(cfg), DecoderLM(cfg, plain=True)
+    n_mamba = [s.mixer for s in kern.layer_specs].count("mamba")
+    params = kern.init(torch.Generator(device=dev).manual_seed(seed + 4), device=dev)
+    flat = list(leaves_with_paths(params))
+    mixer = [i for i, (path, _) in enumerate(flat)
+             if path[0] == "layers" and path[2] in ("mamba", "attn")]
+    paths = [flat[i][0] for i in mixer]
+    log(f"grad phase: {cfg.name} full width in float32, {cfg.num_layers} layers "
+        f"({n_mamba} Mamba), one sequence of {S} tokens, remat={cfg.remat}, seed {seed}; "
+        f"{sum(flat[i][1].numel() for i in mixer)} mixer parameters of "
+        f"{sum(p.numel() for _, p in flat)}")
+
+    def grads(model, scan=None, attn=None, sink=None):
+        """Gradients of the mixer leaves; ``scan`` and ``attn`` replace the
+        kernel model's scan op and flash op, ``sink`` collects each scan's
+        and attention's inputs and incoming gradient."""
+        def tap(orig, kind):
+            def fn(*a, **kw):
+                out = orig(*a, **kw)
+                y = out[0] if kind == "ssm" else out
+                if y.requires_grad:  # the remat recompute's output gets no gradient
+                    entry = {"kind": kind, "in": [t.detach() for t in a], "kw": kw}
+                    y.register_hook(lambda g, e=entry: e.update(dy=g.detach()))
+                    sink.append(entry)
+                return out
+            return fn
+
+        live = [p for _, p in flat]
+        for i in mixer:
+            live[i] = live[i].detach().requires_grad_(True)
+        originals = (M.ssm_scan, A.flash_attention)
+        M.ssm_scan, A.flash_attention = scan or M.ssm_scan, attn or A.flash_attention
+        if sink is not None:
+            M.ssm_scan = tap(M.ssm_scan, "ssm")
+            A.flash_attention = tap(A.flash_attention, "attn")
+        try:
+            reset_counts()
+            loss, _ = model.loss(unflatten(params, live), {"tokens": tokens})
+            out = torch.autograd.grad(loss, [live[i] for i in mixer])
+        finally:
+            M.ssm_scan, A.flash_attention = originals
+        want = (0, 0) if model.plain else (0 if scan else n_mamba, 0 if attn else 1)
+        got = (LAUNCHES["ssm_scan_bwd"], BWD_CALLS["flash_attention_bwd"])
+        if got != want:
+            raise AssertionError(f"grad phase: (B6 launches, attention backward calls) "
+                                 f"{got}, want {want}")
+        return loss.item(), list(out)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    # (a) every layer's kernels in place
+    taps = []
+    loss_k, g_k = grads(kern, sink=taps)
+    taps = [e for e in taps if "dy" in e]
+    if [e["kind"] for e in taps].count("ssm") != n_mamba or len(taps) != n_mamba + 1:
+        raise AssertionError(f"grad phase: tapped {[e['kind'] for e in taps]}")
+    worst_in_place, from_f64 = {}, {}
+
+    def note(name, value):
+        worst_in_place[name] = max(worst_in_place.get(name, 0.0), value)
+
+    def note64(name, got, ref, exact):
+        """study: the kernel's and the plain version's distance from float64
+        on the same inputs."""
+        d = [((t.double() - exact).abs().max() / exact.abs().max()).item() for t in (got, ref)]
+        from_f64[name] = [max(a, b) for a, b in zip(from_f64.get(name, (0.0, 0.0)), d)]
+
+    for entry in taps:
+        if entry["kind"] == "ssm":
+            x, dt, A_, Bc, Cc, D, h0 = entry["in"]
+            dy, dhT = entry["dy"].float().contiguous(), torch.zeros_like(h0)
+            y_k, _, st_k = ssm_scan_fwd(x, dt, A_, Bc, Cc, D, h0, save_states=True)
+            y_p, _, st_p = ssm_scan_ref(x, dt, A_, Bc, Cc, D, h0, save_states=True)
+            got = (y_k, st_k, *ssm_scan_bwd(x, dt, A_, Bc, Cc, D, dy, st_k, dhT))
+            ref = (y_p, st_p, *ssm_scan_bwd_ref(x, dt, A_, Bc, Cc, D, dy, st_p, dhT))
+            names = ("y", "h_starts", "dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+            for name, a, b in zip(names, got, ref):
+                note(name, rel(a, b))
+            if study:
+                a64 = [t.double() for t in (x, dt, A_, Bc, Cc, D, h0)]
+                y64, _, st64 = ssm_scan_ref(*a64, save_states=True)
+                exact = (y64, st64, *ssm_scan_bwd_ref(*a64[:6], dy.double(), st64,
+                                                      dhT.double()))
+                for name, a, b, c in zip(names, got, ref, exact):
+                    note64(name, a, b, c)
+        else:
+            q, k, v = entry["in"]
+            do, kw = entry["dy"], entry["kw"]
+            o_k, o_p = flash_attention_fwd(q, k, v, **kw), attention_ref(q, k, v, **kw)
+            note("attn o", rel(o_k, o_p))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            with torch.enable_grad():
+                ref = torch.autograd.grad(attention_ref(*leaves, **kw), leaves, do)
+            got = flash_attention_bwd(q, k, v, do, **kw)
+            for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                note(name, rel(a, b))
+            if study:
+                a64 = [t.double() for t in (q, k, v)]
+                note64("attn o", o_k, o_p, _attention_f64(*a64, **kw))
+                for name, a, b, c in zip(("dq", "dk", "dv"), got, ref,
+                                         flash_attention_bwd(*a64, do.double(), **kw)):
+                    note64(name, a, b, c)
+    log(f"  (a) {n_mamba} Mamba layers and the attention layer in place, kernels vs "
+        f"plain, worst of max: "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in worst_in_place.items()}))
+    if study:
+        log("  study (a): distance from float64 on the same inputs, worst of max, "
+            "[kernel, plain]: " + json.dumps({k: [float(f"{d:.3e}") for d in v]
+                                              for k, v in from_f64.items()}))
+    del taps
+
+    # (b) every mixer leaf, kernel path vs plain path
+    loss_p, g_p = grads(plain)
+    gap = _leaf_gaps(paths, g_k, g_p)
+    log(f"  (b) every mixer leaf: loss kernel {loss_k:.6f} plain {loss_p:.6f}; kernel vs "
+        f"plain worst {gap[0][0]:.3e} ({gap[0][1]}), next {gap[1][0]:.3e} ({gap[1][1]}); "
+        f"{sum(g > LOGIT_RTOL for g, _ in gap)} of {len(gap)} leaves over {LOGIT_RTOL}")
+    if study:  # each path's distance from the f64 path, whose gradients wait on the host
+        done = {"kernels throughout": [t.cpu() for t in g_k],
+                "plain model": [t.cpu() for t in g_p]}
+        mixes = {  # name: (replaced ops, whether the scan op runs its plain versions)
+            "scan kernels, plain attention": (dict(attn=attention_ref), False),
+            "plain scans, attention kernel": (dict(scan=ssm_scan_ref), False),
+            "the scan op on its plain versions, plain attention":
+                (dict(scan=M.ssm_scan, attn=attention_ref), True)}
+        del g_k, g_p
+        torch.cuda.empty_cache()
+        g_64 = [t.cpu() for t in grads(kern, scan=_scan_f64, attn=_attention_f64)[1]]
+        torch.cuda.empty_cache()
+        for name in list(done) + list(mixes):
+            if name in done:
+                g = done.pop(name)
+            else:  # B4's and B6's algorithm in plain code on the card, where asked
+                ops, twins = mixes[name]
+                saved = SO.ssm_scan_fwd, SO.ssm_scan_bwd
+                if twins:
+                    SO.ssm_scan_fwd, SO.ssm_scan_bwd = ssm_scan_ref, ssm_scan_bwd_ref
+                try:
+                    g = grads(kern, **ops)[1]
+                finally:
+                    SO.ssm_scan_fwd, SO.ssm_scan_bwd = saved
+            off = _leaf_gaps(paths, g, g_64, device=dev)
+            at = {leaf: d for d, leaf in off}
+            log(f"  study: {name} from the f64 path: worst {off[0][0]:.3e} ({off[0][1]}), "
+                f"next {off[1][0]:.3e} ({off[1][1]}), at {gap[0][1]} {at[gap[0][1]]:.3e}; "
+                f"{sum(d > LOGIT_RTOL for d, _ in off)} of {len(off)} leaves over "
+                f"{LOGIT_RTOL}; top 5 "
+                + json.dumps({leaf: float(f"{d:.3e}") for d, leaf in off[:5]}))
+            del g
+            torch.cuda.empty_cache()
+        del g_64
+    else:
+        del g_k, g_p
+    del params, flat
+    torch.cuda.empty_cache()
+    worst = max(worst_in_place.values())
+    if not worst <= LOGIT_RTOL:
+        raise AssertionError(f"jamba f32 gradients in place, kernels vs plain: {worst} > "
+                             f"{LOGIT_RTOL}: {worst_in_place}")
+    if not gap[0][0] <= LOGIT_RTOL:
+        raise AssertionError(f"jamba f32 mixer gradients, kernel vs plain: {gap[:3]} over "
+                             f"{LOGIT_RTOL}")
+    return worst, gap[0][0]
+
+
+def _scan_f64(x, dt, A, Bc, Cc, D, h0, **kw):
+    """The plain selective scan computed in float64, returned in f32."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    y, hT = ssm_scan_ref(*(t.double() for t in (x, dt, A, Bc, Cc, D, h0)))
+    return y.float(), hT.float()
+
+
+def _attention_f64(q, k, v, *, causal=True, window=0, softcap=0.0, prefix_len=0,
+                   q_offset=0):
+    """The plain attention computed in float64 (probabilities not rounded
+    to V's dtype), returned in q's dtype; differentiable by autograd."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import allowed
+
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgqh,bksh->bkgqs", q.double().reshape(B, KV, H // KV, Sq, hd),
+                     k.double()) * hd**-0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    ok = allowed(Sq, Sk, q.device, causal=causal, window=window, prefix_len=prefix_len,
+                 q_offset=q_offset)
+    p = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
+    return torch.einsum("bkgqs,bksh->bkgqh", p, v.double()).reshape(B, H, Sq, hd).to(q.dtype)
+
+
 # --------------------------------------------------------------------------
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--jamba-grad-study", type=int, nargs="+", metavar="SEED",
+                    help="build the kernels, then run only the jamba f32 gradient phase "
+                         "once per SEED, with each mixer leaf's distance from an f64 path "
+                         "under five mixes of kernels and plain versions; no smoke result")
     args = ap.parse_args(argv)
 
     import torch
@@ -1285,11 +1686,18 @@ def main(argv=None):
         f"{' '.join(_build.NVCC_FLAGS)})")
     for stem, path in sorted(libs.items()):
         log_ptxas(stem, path.with_suffix(".log"))
+    if args.jamba_grad_study:
+        for seed in args.jamba_grad_study:
+            jamba_grad_phase(dev, seed, study=True)
+        log(f"jamba gradient study done: {smi}; total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     rows = kernel_phase(dev)
     rows.update(rwkv_kernel_phase(dev))
     rows.update(rwkv_bwd_kernel_phase(dev))
     rows.update(ssm_kernel_phase(dev))
+    rows["ssm_scan_bwd"], b4_train = ssm_bwd_kernel_phase(dev)
+    rows["ssm_scan"].update(b4_train)
 
     from repro_torch.configs import get_config
 
@@ -1303,12 +1711,17 @@ def main(argv=None):
             launches[name] += n
             by_path["serving"][name] += n
     worst = max(f32_phase(dev, args.seed, cfg) for cfg in (
-        get_config(ARCH), get_config(RWKV_ARCH), jamba.replace(**JAMBA_F32)))
-    train_launches, _ = train_phase(dev, args.seed)
-    by_path["training"] = train_launches
-    for name, n in train_launches.items():
-        launches[name] += n
+        get_config(ARCH), get_config(RWKV_ARCH), jamba.replace(**JAMBA_BLOCK)))
+    by_path["training"] = {name: 0 for name in launches}
+    for cfg, rows_seq, preempt in (
+            (get_config(RWKV_ARCH), (TRAIN_BATCH, TRAIN_SEQ), {1: 1}),
+            (jamba.replace(**JAMBA_BLOCK), (TRAIN_BATCH_JAMBA, TRAIN_SEQ_JAMBA), {})):
+        more, _ = train_phase(dev, args.seed, cfg, *rows_seq, preempt)
+        for name, n in more.items():
+            launches[name] += n
+            by_path["training"][name] += n
     worst_grad, depth_ratio = grad_phase(dev, args.seed)
+    jamba_in_place, jamba_leaves = jamba_grad_phase(dev, args.seed)
 
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1323,6 +1736,8 @@ def main(argv=None):
                            "src/repro/kernels/rwkv6_scan/kernel.py:166"),
         "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:62"),
+        "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan.cu",
+                         "src/repro/kernels/ssm_scan/kernel.py:180"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -1337,8 +1752,10 @@ def main(argv=None):
             **{k: v for k, v in r.items()
                if k.startswith(("decode_", "train_", "jamba_"))}})
     log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; f32 gradient "
-        f"check passed: worst {worst_grad:.3e} <= {LOGIT_RTOL}, full depth "
-        f"{depth_ratio:.3f} <= 1 of its limit; "
+        f"check passed: rwkv6-3b worst {worst_grad:.3e} <= {LOGIT_RTOL}, full depth "
+        f"{depth_ratio:.3f} <= 1 of its limit; jamba block in place "
+        f"{jamba_in_place:.3e} <= {LOGIT_RTOL}, every mixer leaf {jamba_leaves:.3e} <= "
+        f"{LOGIT_RTOL}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

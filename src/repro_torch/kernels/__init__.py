@@ -13,6 +13,9 @@ Each kernel ships three files, as in ``repro.kernels``:
 ``LAUNCHES`` and ``PLAIN_CALLS`` are plain integer counters keyed by op
 name, so a run can show which path it went through: each kernel wrapper
 adds one where it launches its kernel, each plain version where it runs.
+``BWD_CALLS`` counts the backward passes that are plain PyTorch math by
+design, since the reference has no kernel for them either (attention's
+backward recomputes through its oracle).
 """
 
 from __future__ import annotations
@@ -20,14 +23,15 @@ from __future__ import annotations
 from typing import Dict
 
 KERNEL_NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
-                "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan")
+                "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan", "ssm_scan_bwd")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 # plus the model-level plain attention (``models.attention.plain=True``)
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNEL_NAMES + ("model_attention",)}
+BWD_CALLS: Dict[str, int] = {"flash_attention_bwd": 0}
 
 
 def reset_counts() -> None:
-    for table in (LAUNCHES, PLAIN_CALLS):
+    for table in (LAUNCHES, PLAIN_CALLS, BWD_CALLS):
         for name in table:
             table[name] = 0

@@ -1,11 +1,74 @@
 """Public flash-attention op: the CUDA kernel for a CUDA tensor, the plain
-PyTorch version for a CPU tensor. Forward only (the port serves; the
-training backward is later work)."""
+PyTorch version for a CPU tensor, no fallback from one to the other.
+
+Under autograd the op is a ``torch.autograd.Function``, the twin of the
+reference's ``_flash`` custom VJP (``repro.kernels.flash_attention.ops``):
+its forward is the kernel (B2) and saves only q, k and v; its backward
+recomputes attention from them (``flash_attention_bwd``), so no O(S^2)
+probabilities are kept between the passes. The reference has no backward
+kernel: its backward is plain jnp that XLA compiles, and the port's is
+plain PyTorch math, counted in ``BWD_CALLS`` and not as a plain call of
+the forward.
+"""
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import BWD_CALLS
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import NEG_INF, allowed, attention_ref
+
+
+def flash_attention_bwd(q, k, v, do, *, causal=True, window=0, softcap=0.0,
+                        prefix_len=0, q_offset=0):
+    """dq, dk, dv of ``attention_ref`` at (q, k, v) for the output gradient
+    ``do`` (B,H,Sq,hd), recomputed in f32 (f64 for f64 inputs) as
+    ``jax.vjp`` of the reference's oracle computes them: the probabilities
+    are rounded to V's dtype before the PV product, so their gradient is
+    too; masked logits get none."""
+    BWD_CALLS["flash_attention_bwd"] += 1
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = hd**-0.5
+    qg = q.reshape(B, KV, G, Sq, hd).to(acc)
+    kf, vf = k.to(acc), v.to(acc)
+    dog = do.reshape(B, KV, G, Sq, hd).to(acc)
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, kf) * scale
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    ok = allowed(Sq, Sk, q.device, causal=causal, window=window,
+                 prefix_len=prefix_len, q_offset=q_offset)
+    p = torch.softmax(s.masked_fill(~ok, NEG_INF), dim=-1)
+    del s
+    dv = torch.einsum("bkgqs,bkgqh->bksh", p.to(v.dtype).to(acc), dog)
+    dp = torch.einsum("bkgqh,bksh->bkgqs", dog, vf).to(v.dtype).to(acc)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    del p, dp
+    ds = ds.masked_fill(~ok, 0.0)
+    if softcap:
+        ds = ds * (1 - t * t)
+    ds = ds * scale
+    dq = torch.einsum("bkgqs,bksh->bkgqh", ds, kf).reshape(B, H, Sq, hd)
+    dk = torch.einsum("bkgqs,bkgqh->bksh", ds, qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        fwd = flash_attention_fwd if q.is_cuda else attention_ref
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = kw
+        return fwd(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, do, **ctx.kw), None)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -13,8 +76,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     """GQA flash attention. q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd)."""
     kw = dict(causal=causal, window=window, softcap=softcap,
               prefix_len=prefix_len, q_offset=q_offset)
-    if q.is_cuda:
-        return flash_attention_fwd(q, k, v, **kw)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, **kw)
-    raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, kw)
+    fwd = flash_attention_fwd if q.is_cuda else attention_ref
+    return fwd(q, k, v, **kw)

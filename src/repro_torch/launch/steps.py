@@ -26,16 +26,18 @@ def make_train_step(model: DecoderLM, opt: AdamW,
     into M microbatches of B/M rows; their gradients accumulate in
     ``cfg.grad_acc_dtype`` and are divided by M, and the metrics are
     averaged. Params and optimizer state are updated in place (see
-    ``AdamW.update``); the returned state holds the same tensors."""
+    ``AdamW.update``); the returned state holds the same tensors.
+
+    Memory: each leaf's gradient is added to its accumulation buffer by a
+    hook as soon as autograd has produced it, and then dropped, so a
+    microbatch's whole gradient never exists at once; AdamW receives the
+    buffers and M and casts and divides leaf by leaf. The sums keep the
+    reference's order: zeros, ``acc + g.astype(acc_dt)`` per microbatch,
+    then ``.astype(f32) / M``. With M = 1 the buffer is the gradient
+    itself, in the param dtype."""
     cfg = model.cfg
     M = num_microbatches or cfg.num_microbatches
     acc_dt = torch_dtype(cfg.grad_acc_dtype)
-
-    def grads_of(params, flat, tokens):
-        live = [p.detach().requires_grad_(True) for p in flat]
-        loss, metrics = model.loss(unflatten(params, live), {"tokens": tokens})
-        grads = torch.autograd.grad(loss, live)
-        return {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state["params"]
@@ -44,23 +46,40 @@ def make_train_step(model: DecoderLM, opt: AdamW,
         if tokens.shape[0] % M:
             raise ValueError(f"global batch {tokens.shape[0]} does not split into "
                              f"{M} microbatches")
+        live = [p.detach().requires_grad_(True) for p in flat]
+        tree = unflatten(params, live)
         if M == 1:
-            metrics, grads = grads_of(params, flat, tokens)
-            grads = [g.float() for g in grads]
+            grads = [None] * len(flat)
         else:
-            gacc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device) for p in flat]
-            sums = None
+            grads = [torch.zeros(p.shape, dtype=acc_dt, device=p.device) for p in flat]
+
+        def accumulate(i):
+            def hook(leaf):
+                if M == 1:
+                    grads[i] = leaf.grad
+                else:
+                    grads[i].add_(leaf.grad.to(acc_dt))
+                leaf.grad = None
+            return hook
+
+        handles = [t.register_post_accumulate_grad_hook(accumulate(i))
+                   for i, t in enumerate(live)]
+        sums = None
+        try:
             for mb in tokens.reshape((M, tokens.shape[0] // M) + tokens.shape[1:]):
-                metrics, grads = grads_of(params, flat, mb)
-                for a, g in zip(gacc, grads):
-                    a.add_(g.to(acc_dt))
-                del grads
+                loss, metrics = model.loss(tree, {"tokens": mb})
+                loss.backward()
+                metrics = {k: v.detach() for k, v in metrics.items()}
                 sums = metrics if sums is None else {k: sums[k] + v
                                                      for k, v in metrics.items()}
-            grads = [a.float().div_(M) for a in gacc]
-            del gacc
-            metrics = {k: v / M for k, v in sums.items()}
-        opt.update(unflatten(params, grads), state["opt"], params, state["step"])
+        finally:
+            for h in handles:
+                h.remove()
+        del live, tree
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        metrics = sums if M == 1 else {k: v / M for k, v in sums.items()}
+        opt.update(unflatten(params, grads), state["opt"], params, state["step"],
+                   num_microbatches=M)
         del grads
         return {"params": params, "opt": state["opt"],
                 "step": state["step"] + 1}, metrics

@@ -7,8 +7,11 @@ checkpoints and handles simulated revocations.
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b --smoke \
       --steps 3 --device cpu                          # plain PyTorch path
 
-Training is ported for RWKV-6 stacks (rwkv6-3b); an attention stack raises.
-Weights are the port's own seeded init (``--seed``). ``--preempt 8:1``
+Training is ported for attention, RWKV-6 and Mamba/attention stacks
+(starcoder2-3b, rwkv6-3b). ``--arch jamba-1.5-large-398b`` raises naming
+MoE: the config has experts, which are not ported (``chip_smoke.py`` trains
+one block of it with experts off). Weights are the port's own seeded init
+(``--seed``). ``--preempt 8:1``
 revokes the card at step 8 and resumes on a replacement (one device only:
 meshes are ROADMAP Queue A item 11).
 """

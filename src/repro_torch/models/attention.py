@@ -1,9 +1,9 @@
 """Attention: GQA with RoPE, global or sliding-window masks, gemma2
 soft-capping, prefix-LM, and KV caches (dense and paged).
 
-Twin of ``repro.models.attention`` for the serving path (prefill and
-decode). The reference chooses between its Pallas kernels and its jnp path
-with ``cfg.use_pallas``; the port dispatches on the tensors' device instead:
+Twin of ``repro.models.attention``: training, prefill and decode. The
+reference chooses between its Pallas kernels and its jnp path with
+``cfg.use_pallas``; the port dispatches on the tensors' device instead:
 the kernel ops (``repro_torch.kernels.*.ops``) launch the hand-written CUDA
 kernels on a CUDA tensor and run their plain PyTorch versions on a CPU
 tensor. ``plain=True`` selects the model-level plain formulations
@@ -92,12 +92,14 @@ def _paged_attention_torch(qg, k, v, q_pos, k_pos, *, window, prefix_len, cap,
 
 
 def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
-                      plain: bool = False):
+                      plain: bool = False, train: bool = False):
     """q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd). Positions are 1-D (shared by the
-    batch; prefill self-attention over 0..S-1) or (B, S) per sequence
-    (decode). Dispatch: ``plain`` -> the model-level plain math; otherwise
-    the kernel ops, which pick the CUDA kernel or its plain version by
-    device."""
+    batch; prefill and training self-attention over 0..S-1) or (B, S) per
+    sequence (decode). Dispatch: ``plain`` -> the model-level plain math
+    (differentiated by autograd in training); otherwise the kernel ops,
+    which pick the CUDA kernel or its plain version by device. ``train``
+    takes the flash op at every S, since its backward is the one the
+    training path has."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -108,15 +110,15 @@ def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
         qg = q.reshape(B, Sq, KV, G, hd)
         fn = _direct_attention if q_pos.dim() == 1 else _paged_attention_torch
         return fn(qg, k, v, q_pos, k_pos, **kw).reshape(B, Sq, H, hd)
-    if Sq == 1:  # decode against a cache
+    if Sq == 1 and not train:  # decode against a cache
         ok = allow_mask(q_pos, k_pos, window=window, prefix_len=cfg.prefix_len)
         bias = mask_bias(ok)[..., 0, :]  # (L,) or (B,L)
         o = decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
                              bias, softcap=cfg.attn_softcap)
         return o[:, None]
     if q_pos.dim() != 1 or Sq != k.shape[1]:
-        raise ValueError("prefill attention takes self-attention over "
-                         "positions 0..S-1")
+        raise ValueError("prefill and training attention take self-attention "
+                         "over positions 0..S-1")
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=True, window=window, softcap=cfg.attn_softcap,
                         prefix_len=cfg.prefix_len)
@@ -195,6 +197,18 @@ def init_paged_entry(cfg: ModelConfig, spec: LayerSpec, n_phys_blocks: int,
 
 # ---------------------------------------------------------------------------
 # layer entry points (x is already normed; residual handled by caller)
+
+
+def attn_train(p, x, cfg: ModelConfig, spec: LayerSpec, positions,
+               plain: bool = False):
+    """The training forward of one layer: causal self-attention over
+    ``positions`` (0..S-1), no cache. Returns y."""
+    q, k, v = _project(p, x, cfg)
+    if cfg.pos_type == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = grouped_attention(q, k, v, positions, positions, cfg, spec, plain, train=True)
+    return _out(p, o, cfg)
 
 
 def attn_prefill(p, x, cfg: ModelConfig, spec: LayerSpec, positions,

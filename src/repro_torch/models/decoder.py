@@ -17,8 +17,8 @@ or from the port's own seeded ``init``.
 
 Four modes share one layer body: ``train`` (``forward``/``loss``: the full
 sequence, no caches, each block under ``torch.utils.checkpoint`` when
-``cfg.remat == "full"``; RWKV stacks only so far, an attention or Mamba
-layer raises),
+``cfg.remat == "full"``; attention layers through the differentiable flash
+op, Mamba layers through the differentiable selective scan),
 ``prefill`` (returns per-layer caches), ``decode`` (dense cache, one token
 per row, per-row positions) and ``decode_paged`` (paged pools + page
 table). An RWKV layer's cache is its state ``{"shift_tm", "shift_cm",
@@ -133,12 +133,6 @@ class DecoderLM:
     def _apply_layer(self, lp, x, spec, *, mode, positions=None, cache=None,
                      pos=None, max_len=None, true_len=None, pages=None):
         cfg = self.cfg
-        if spec.mixer != "rwkv" and mode == "train":
-            raise NotImplementedError(
-                f"training attention and Mamba layers is not ported yet, got "
-                f"mixer={spec.mixer!r} (attention's backward through the flash "
-                f"oracle and the selective scan's backward are a later slice, "
-                f"ROADMAP Queue A)")
         if spec.mixer != "attn" and (mode == "decode_paged" or true_len is not None):
             raise NotImplementedError(
                 f"paged decode / bucketed (true_len) prefill support attention "
@@ -146,7 +140,14 @@ class DecoderLM:
         if spec.mixer == "rwkv":
             return self._apply_rwkv_layer(lp, x, mode=mode, cache=cache)
         h = apply_norm(lp["norm1"], x, cfg)
-        if spec.mixer == "mamba":
+        if mode == "train":
+            new_cache = None
+            if spec.mixer == "mamba":
+                y = M.mamba_train(lp["mamba"], h, cfg, plain=self.plain)
+            else:
+                positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+                y = A.attn_train(lp["attn"], h, cfg, spec, positions, plain=self.plain)
+        elif spec.mixer == "mamba":
             if mode == "prefill":
                 y, new_cache = M.mamba_prefill(lp["mamba"], h, cfg, plain=self.plain)
             else:

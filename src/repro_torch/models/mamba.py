@@ -15,8 +15,9 @@ on any device, the yardstick the kernel path is held against on the card.
 
 Leaf dtypes follow the reference: ``A_log``, ``D``, ``dt_bias`` and the
 three inner norm scales are f32 in every model, the rest in the model dtype;
-the ``ssm`` state is f32, the ``conv`` state in the model dtype. Inference
-only: the scan's backward is not ported yet, so ``mamba_train`` raises.
+the ``ssm`` state is f32, the ``conv`` state in the model dtype.
+``mamba_train`` differentiates through the scan op's ``autograd.Function``
+(B4 with its checkpoints forward, B6 backward).
 """
 
 from __future__ import annotations
@@ -103,10 +104,15 @@ def _mix(p, x, cfg: ModelConfig, conv_state, h0, *, state_out=None,
     return y @ p["out_proj"], conv_state, hT
 
 
-def mamba_train(p, x, cfg: ModelConfig):
-    raise NotImplementedError(
-        "training Mamba layers is not ported yet: the selective scan's "
-        "backward (ssm_scan_bwd) comes with the jamba training slice")
+def mamba_train(p, x, cfg: ModelConfig, *, plain: bool = False):
+    """The training forward of one layer from a zero state, no cache.
+    Returns y; the scan op's backward is B6 on the card (the plain
+    version's, differentiated by autograd, under ``plain``)."""
+    B = x.shape[0]
+    h0 = torch.zeros((B, cfg.d_inner, cfg.ssm_state_dim), dtype=torch.float32,
+                     device=x.device)
+    y, _, _ = _mix(p, x, cfg, None, h0, plain=plain)
+    return y
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device):

@@ -1,5 +1,6 @@
 """Elastic, fault-tolerant training executor on one card (twin of
-``repro.runtime.elastic.ElasticTrainer``).
+``repro.runtime.elastic.ElasticTrainer``). It trains any stack the port
+builds: attention, RWKV-6 and Mamba/attention (experts are not ported).
 
 A revocation notice (``preempt_at``) runs the reference's discipline:
     finish the current step -> blocking checkpoint -> release the state ->

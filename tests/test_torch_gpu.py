@@ -3,7 +3,7 @@ PyTorch version on the same CUDA inputs, at the reference's tolerances
 (attention: atol 2e-5 for f32 and int8-dequantised pools, 2e-2 for bf16;
 the RWKV-6 scan: atol = rtol = 1e-3, its inputs widened to f32 exactly; its
 backward: 1e-4 for f32 outputs, 2e-2 for bf16 ones; the Mamba selective
-scan: atol = rtol = 1e-4, all f32).
+scan and its backward: atol = rtol = 1e-4, all f32).
 
 Needs a CUDA device and ``nvcc``; the ``cuda`` fixture skips every test here
 otherwise (decided inside the fixture, never at import, so every xdist
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+from repro_torch.kernels import BWD_CALLS, LAUNCHES, PLAIN_CALLS, reset_counts
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention_fwd, paged_decode_attention_fwd)
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
@@ -27,9 +27,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd, rwkv6_scan_fwd
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
-from repro_torch.kernels.ssm_scan.kernel import ssm_scan_fwd
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.ssm_scan.kernel import ssm_scan_bwd, ssm_scan_fwd
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
 from repro_torch.optim.compress import quantize_int8
 
 pytestmark = pytest.mark.gpu
@@ -517,8 +518,8 @@ def test_ssm_scan_kernel_refuses_what_it_does_not_take(cuda):
         ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0[:, :32])
     with pytest.raises(ValueError, match="CUDA"):
         ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0.cpu())
-    with pytest.raises(NotImplementedError):
-        ssm_scan(x.clone().requires_grad_(True), dt, A, Bc, Cc, D, h0)
+    with pytest.raises(ValueError, match="state_out"):
+        ssm_scan(x.clone().requires_grad_(True), dt, A, Bc, Cc, D, h0, state_out=h0)
 
 
 def test_jamba_decoder_kernel_path_matches_plain_path(cuda):
@@ -551,3 +552,166 @@ def test_jamba_decoder_kernel_path_matches_plain_path(cuda):
     assert n_mamba == 14
     assert LAUNCHES["ssm_scan"] == PLAIN_CALLS["ssm_scan"] == 4 * n_mamba
     assert LAUNCHES["flash_attention"] == 2 and LAUNCHES["decode_attention"] == 6
+
+
+# ------------------------------------------- Mamba selective-scan backward (B6)
+
+SSM_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def _ssm_bwd_case(gen, dev, B, S, Di, N):
+    """A forward case, its checkpoints from B4's ``save_states``, and a
+    nonzero dy and dhT."""
+    fwd = _ssm_case(gen, dev, B, S, Di, N)
+    _, _, starts = ssm_scan_fwd(*fwd, save_states=True)
+    dy = torch.randn((B, S, Di), generator=gen, device=dev)
+    dhT = 0.5 * torch.randn((B, Di, N), generator=gen, device=dev)
+    return fwd, (*fwd[:6], dy, starts, dhT)
+
+
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("Di", [200, 16384])
+@pytest.mark.parametrize("S", [1, 37, 130, 1024])
+@pytest.mark.parametrize("B", [1, 2])
+def test_ssm_bwd_kernel_matches_plain(cuda, B, S, Di, N):
+    """B4's checkpoints against the plain forward's, then B6 against the
+    plain backward on them; Di=200 leaves the last CTA's channels ragged."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    fwd, args = _ssm_bwd_case(gen, cuda, B, S, Di, N)
+    _, _, starts_ref = ssm_scan_ref(*fwd, save_states=True)
+    torch.testing.assert_close(args[7], starts_ref, atol=SSM_TOL, rtol=SSM_TOL)
+    reset_counts()
+    got = ssm_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssm_scan_bwd"] == 1 and PLAIN_CALLS["ssm_scan_bwd"] == 0
+    for name, a, b in zip(SSM_NAMES, got, ssm_scan_bwd_ref(*args)):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32, name
+        torch.testing.assert_close(a, b, atol=SSM_TOL, rtol=SSM_TOL,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_ssm_bwd_kernel_bitwise_repeatable_and_writes_nothing_in_place(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    _, args = _ssm_bwd_case(gen, cuda, 2, 130, 16384, 16)
+    before = [t.clone() for t in args]
+    got = ssm_scan_bwd(*args)
+    again = ssm_scan_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
+
+
+def test_ssm_save_states_leaves_the_scan_unchanged(cuda):
+    """B4 with ``save_states`` (its own template instance) gives the
+    serving instance's y and hT bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    args = _ssm_case(gen, cuda, 2, 150, 16384, 16)
+    y, hT = ssm_scan_fwd(*args)
+    y2, hT2, starts = ssm_scan_fwd(*args, save_states=True)
+    assert torch.equal(y, y2) and torch.equal(hT, hT2)
+    assert starts.shape == (2, 19, 16384, 16)
+    assert torch.equal(starts[:, 0], args[6])
+
+
+def test_ssm_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    _, args = _ssm_bwd_case(gen, cuda, 1, 20, 64, 16)
+    x, dt, A, Bc, Cc, D, dy, starts, dhT = args
+    with pytest.raises(ValueError, match="shapes"):
+        ssm_scan_bwd(x, dt, A, Bc, Cc, D, dy, starts[:, :2].contiguous(), dhT)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssm_scan_bwd(x, dt, A, Bc, Cc, D, dy.cpu(), starts, dhT)
+    with pytest.raises(TypeError):
+        ssm_scan_bwd(x, dt, A, Bc, Cc, D, dy.double(), starts, dhT)
+    strided = dy.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan_bwd(x, dt, A, Bc, Cc, D, strided, starts, dhT)
+    with pytest.raises(ValueError, match="aligned"):
+        ssm_scan_bwd(x, dt, A, Bc, Cc, D, dy, starts,
+                     torch.empty(dhT.numel() + 1, device=cuda)[1:].view_as(dhT))
+
+
+@pytest.mark.parametrize("S", [37, 130])
+def test_ssm_op_gradients_equal_autograd_through_plain(cuda, S):
+    """The autograd op (B4 with save_states, then B6) against autograd
+    through the plain forward, every input's gradient, nonzero h0 and a
+    used hT."""
+    gen = torch.Generator(device=cuda).manual_seed(44)
+    args = _ssm_case(gen, cuda, 2, S, 512, 16)
+    dy = torch.randn((2, S, 512), generator=gen, device=cuda)
+    dhT = torch.randn((2, 512, 16), generator=gen, device=cuda)
+    grads = []
+    for impl in ("kernel", "ref"):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        reset_counts()
+        y, hT = ssm_scan(*leaves, bwd_impl=impl)
+        grads.append(torch.autograd.grad((y * dy).sum() + (hT * dhT).sum(), leaves))
+        assert LAUNCHES["ssm_scan_bwd"] == (impl == "kernel")
+        assert PLAIN_CALLS["ssm_scan_bwd"] == 0
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=SSM_TOL, rtol=SSM_TOL)
+
+
+# ----------------------------------------------------- flash op backward
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kw", [dict(), dict(window=48, softcap=30.0)],
+                         ids=["causal", "window_softcap"])
+def test_flash_op_backward_on_the_card(cuda, dtype, kw):
+    """The flash op under autograd: B2 forward (no plain call), and dq, dk,
+    dv from its recomputing backward against autograd through the plain
+    version, at jamba's head grouping (G=8)."""
+    gen = torch.Generator(device=cuda).manual_seed(45)
+    B, H, KV, S, hd = 1, 16, 2, 300, 128
+    q, do = (_randn(gen, (B, H, S, hd), dtype, cuda) for _ in range(2))
+    k, v = (_randn(gen, (B, KV, S, hd), dtype, cuda) for _ in range(2))
+    grads = []
+    for op in (flash_attention, attention_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        reset_counts()
+        o = op(*leaves, **kw)
+        grads.append(torch.autograd.grad(o, leaves, do))
+        if op is flash_attention:
+            assert LAUNCHES["flash_attention"] == 1 and PLAIN_CALLS["flash_attention"] == 0
+            assert BWD_CALLS["flash_attention_bwd"] == 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+def test_jamba_train_step_kernel_path_matches_plain_path(cuda):
+    """One block of the jamba smoke config without experts in f32 on the
+    card, two train steps (two microbatches, remat="full", f32 moments):
+    the kernel path's losses against the plain path's within 5e-4, and the
+    kernels launched as the path predicts."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant_schedule
+
+    cfg = smoke_config("jamba-1.5-large-398b").replace(
+        num_layers=8, moe_period=0, num_experts=0, experts_per_token=0,
+        num_microbatches=2, remat="full")
+    data = SyntheticBatches(cfg, 4, 130, seed=0)
+    losses = {}
+    for plain in (False, True):
+        model = build_model(cfg, plain=plain)
+        opt = AdamW(lr=constant_schedule(1e-3))
+        params = model.init(torch.Generator(device=cuda).manual_seed(46), device=cuda)
+        state, step = opt.init_state(params), make_train_step(model, opt)
+        reset_counts()
+        losses[plain] = []
+        for i in range(2):
+            state, metrics = step(state, data.batch(i))
+            losses[plain].append(float(metrics["loss"]))
+        n = 2 * 2 * 7  # steps x microbatches x Mamba layers
+        if plain:
+            assert sum(LAUNCHES.values()) == 0
+        else:
+            assert LAUNCHES["ssm_scan"] == 2 * n and LAUNCHES["ssm_scan_bwd"] == n
+            assert LAUNCHES["flash_attention"] == 2 * 2 * 2
+            assert BWD_CALLS["flash_attention_bwd"] == 2 * 2
+            assert sum(PLAIN_CALLS.values()) == 0
+    np.testing.assert_allclose(losses[False], losses[True], atol=5e-4, rtol=5e-4)

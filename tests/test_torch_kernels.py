@@ -44,7 +44,8 @@ from repro_torch.kernels.rwkv6_scan.kernel import (  # noqa: E402
     Rwkv6BwdParams, Rwkv6Params, rwkv6_scan_bwd, rwkv6_scan_fwd)
 from repro_torch.kernels.rwkv6_scan.ref import CHECKPOINT  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
-from repro_torch.kernels.ssm_scan.kernel import SsmParams, ssm_scan_fwd  # noqa: E402
+from repro_torch.kernels.ssm_scan.kernel import (  # noqa: E402
+    CHANNELS_PER_CTA, SsmBwdParams, SsmParams, ssm_scan_bwd, ssm_scan_fwd)
 from repro_torch.kernels.ssm_scan.ops import ssm_scan  # noqa: E402
 from repro_torch.optim.compress import dequantize_int8, quantize_int8  # noqa: E402
 
@@ -246,6 +247,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ssm_scan_fwd(x, x, A, bc, bc, torch.zeros(32), h0)
     with pytest.raises(ValueError):
         ssm_scan(*(t.to("meta") for t in (x, x, A, bc, bc, torch.zeros(32), h0)))
+    with pytest.raises(ValueError):
+        ssm_scan_bwd(x, x, A, bc, bc, torch.zeros(32), x, torch.zeros(1, 1, 32, 16), h0)
 
 
 _CTYPE_SIZES = {"const void*": 8, "void*": 8, "const float*": 8, "float*": 8,
@@ -258,6 +261,7 @@ _CTYPE_SIZES = {"const void*": 8, "void*": 8, "const float*": 8, "float*": 8,
     ("rwkv6_scan.cu", "Rwkv6Params", Rwkv6Params),
     ("rwkv6_scan.cu", "Rwkv6BwdParams", Rwkv6BwdParams),
     ("ssm_scan.cu", "SsmParams", SsmParams),
+    ("ssm_scan.cu", "SsmBwdParams", SsmBwdParams),
 ])
 def test_ctypes_struct_mirrors_cuda_source(src, struct, mirror):
     """The C entries take a pointer to a parameter struct; its ctypes mirror
@@ -281,6 +285,19 @@ def test_rwkv_checkpoint_interval_matches_cuda_source():
     shapes use ``CHECKPOINT``."""
     text = (SRC / "repro_torch" / "csrc" / "rwkv6_scan.cu").read_text()
     assert int(re.search(r"constexpr int CK = (\d+);", text).group(1)) == CHECKPOINT
+
+
+def test_ssm_checkpoint_interval_and_cta_width_match_cuda_source():
+    """B4 saves, and B6 replays from, a state every SSM_CK steps; B6 writes
+    one dB/dC partial per CTA of SSM_THREADS channels. The plain versions
+    and the wrappers' buffer shapes use ``CHECKPOINT`` and
+    ``CHANNELS_PER_CTA``."""
+    from repro_torch.kernels.ssm_scan.ref import CHECKPOINT as SSM_CHECKPOINT
+
+    text = (SRC / "repro_torch" / "csrc" / "ssm_scan.cu").read_text()
+    assert int(re.search(r"constexpr int SSM_CK = (\d+);", text).group(1)) == SSM_CHECKPOINT
+    assert int(re.search(r"constexpr int SSM_THREADS = (\d+);", text).group(1)) == \
+        CHANNELS_PER_CTA
 
 
 def test_port_imports_neither_jax_nor_reference():

@@ -121,14 +121,20 @@ def test_plain_scan_state_out_and_chaining():
 
 
 def test_scan_refuses_gradients():
-    """The scan's backward is not ported: inputs that need a gradient raise
-    instead of being differentiated through the plain loop."""
+    """Under a gradient the scan refuses ``state_out`` (an in-place state
+    write would overwrite what autograd saved); under ``no_grad`` the same
+    call updates the state in place. Without ``state_out`` a gradient flows
+    (tests/test_torch_mamba_train.py holds its values)."""
     args = list(map(_t, _scan_inputs(1, 4, 16, 8)))
     args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        ssm_scan(*args)
+    with pytest.raises(ValueError, match="state_out"):
+        ssm_scan(*args, state_out=args[6])
+    y, hT = ssm_scan(*args)
+    assert y.requires_grad and hT.requires_grad
+    state = args[6].clone()
     with torch.no_grad():
-        ssm_scan(*args)
+        y2, h2 = ssm_scan(*args[:6], state, state_out=state)
+    assert h2 is state and torch.equal(y2, y.detach()) and torch.equal(state, hT.detach())
 
 
 # ------------------------------------------------------------- model blocks
@@ -193,12 +199,20 @@ def test_mamba_prefill_and_decode_match_reference(S):
 
 
 def test_mamba_train_raises():
-    _, _, tp = _block_params(0)
-    with pytest.raises(NotImplementedError):
-        M.mamba_train(tp, torch.zeros(1, 4, 128), smoke_config(ARCH).replace(**NO_MOE))
-    model = build_model(smoke_config(ARCH).replace(**NO_MOE))
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        model.loss(_port_params(), {"tokens": torch.ones((1, 8), dtype=torch.int64)})
+    """``mamba_train`` (from a zero state, no cache) matches the reference's
+    within 5e-4; the jamba config with its experts still raises in
+    training, naming MoE (tests/test_torch_mamba_train.py holds the
+    gradients)."""
+    jcfg, jp, tp = _block_params(5)
+    cfg = smoke_config(ARCH).replace(**NO_MOE)
+    x = np.random.default_rng(6).normal(size=(2, 37, cfg.d_model)).astype(np.float32)
+    reset_counts()
+    y = M.mamba_train(tp, _t(x), cfg)
+    assert PLAIN_CALLS["ssm_scan"] == 1
+    _close(y, JM.mamba_train(jp, jnp.asarray(x), jcfg), TOL)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        build_model(smoke_config(ARCH)).loss(
+            _port_params(), {"tokens": torch.ones((1, 8), dtype=torch.int64)})
 
 
 # ---------------------------------------------------------------- DecoderLM

@@ -3,8 +3,9 @@ backward against the reference's Pallas backward (interpret mode) and
 ``jax.vjp`` of its oracle (atol = rtol = 1e-4, the reference's backward
 tolerance in tests/test_kernels.py); the autograd op (``gradcheck`` in
 float64, and against autograd through the plain forward); gradients of
-``DecoderLM.loss`` on the rwkv6-3b smoke config against ``jax.grad`` of the
-reference's (loss within 5e-4, each leaf within 1e-4 of its max |grad|);
+``DecoderLM.loss`` on the rwkv6-3b smoke config, and on the starcoder2-3b
+one (attention), against ``jax.grad`` of the reference's (loss within 5e-4,
+each leaf within 1e-4 of its max |grad|);
 three train steps against the reference's ``make_train_step``; and the
 one-device ``ElasticTrainer`` and ``launch.train``.
 
@@ -36,7 +37,7 @@ from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.data import SyntheticBatches  # noqa: E402
-from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts  # noqa: E402
+from repro_torch.kernels import BWD_CALLS, LAUNCHES, PLAIN_CALLS, reset_counts  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: E402
     CHECKPOINT, rwkv6_scan_bwd_ref, rwkv6_scan_ref)
@@ -211,11 +212,31 @@ def test_decoder_loss_gradients_match_reference(use_pallas):
 
 
 def test_train_mode_refuses_attention_and_dots_remat():
+    """Attention layers train: loss and every gradient leaf of the
+    starcoder2-3b smoke config (sliding-window attention, rotary positions,
+    biases) against ``jax.grad`` of the reference's, on the reference's jnp
+    route, within 5e-4 and 1e-4 of each leaf's max; the port's attention
+    runs the flash op and its recomputing backward. remat="dots" is still
+    refused."""
+    jcfg = j_smoke("starcoder2-3b")
+    jm = j_build(jcfg)
+    jp = jm.init(jax.random.PRNGKey(2))
+    tokens = JBatches(jcfg, 2, 64, seed=1).batch(0)["tokens"]
+    (jl, _), jg = jax.value_and_grad(jm.loss, has_aux=True)(
+        jp, {"tokens": jnp.asarray(tokens)})
     cfg = smoke_config("starcoder2-3b")
+    assert cfg.window_size and cfg.window_size < 64
+    params = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     m = build_model(cfg)
-    params = m.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="attention"):
-        m.loss(params, {"tokens": torch.ones((1, 8), dtype=torch.int64)})
+    reset_counts()
+    loss, paths, grads = _flat_grads(m, params, torch.from_numpy(tokens))
+    assert BWD_CALLS["flash_attention_bwd"] == cfg.num_layers
+    assert abs(loss - float(jl)) <= TOL * (1 + abs(float(jl)))
+    jg = jax.tree.map(np.asarray, jg)
+    for path, g in zip(paths, grads):
+        ref = _ref_leaf(jg, path, m.block_size)
+        assert g.shape == ref.shape, path
+        assert np.abs(g.float().numpy() - ref).max() <= 1e-4 * np.abs(ref).max(), path
     m = build_model(smoke_config(ARCH).replace(remat="dots"))
     params = m.init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
