@@ -24,9 +24,10 @@ checkout of the repository. Phases (none catches its own failure):
    updated in place, two runs bitwise equal; tolerance atol = rtol = 1e-4.
    Times from CUDA events: kernel, plain version, and one PyTorch library
    call computing the same function where there is one (timed only; the
-   port never calls it). The scans' decode steps are too short for events
-   over back-to-back calls to see past the host; their kernel time comes
-   from torch.profiler;
+   port never calls it). The scans' decode steps and decode attention
+   (B1/B3: its split pass and its combine, beside SDPA's kernels) are too
+   short for events over back-to-back calls to see past the host; their
+   device time comes from torch.profiler, the event times are logged beside;
 3. serving — full width, bf16, seeded random weights, through
    ``ContinuousBatcher`` (4 slots, max_len 8192) for 8 requests of prompt
    lengths ``PROMPT_LENS`` and 24 new tokens each: starcoder2-3b paged,
@@ -220,6 +221,13 @@ def _log_shape_row(label, row, prefix="jamba_"):
         f"at {row[prefix + 'shape']}")
 
 
+def _log_event_row(label, row, prefix="jamba_"):
+    log(f"  {label}: device ms={row[prefix + 'ms']:.5f} library (SDPA) "
+        f"{row[prefix + 'library_ms']:.5f} (profiler); back-to-back calls "
+        f"{row[prefix + 'event_ms']:.5f}, SDPA {row[prefix + 'event_library_ms']:.5f} "
+        f"(CUDA events, paced by the host)")
+
+
 def kernel_phase(dev):
     import torch
     import torch.nn.functional as F
@@ -326,18 +334,26 @@ def kernel_phase(dev):
         if dtype == bf16:
             it = iter(range(10**9))
             mask4 = bias[:, None, None, :]
+
+            def kern():
+                return decode_attention_fwd(q, *caches[next(it) % n_copies], bias)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], *caches[next(it) % n_copies], attn_mask=mask4,
+                    enable_gqa=True)
+
             rows["decode_attention"] = dict(
                 max_abs_err=err,
-                ms=time_ms(lambda: decode_attention_fwd(
-                    q, *caches[next(it) % n_copies], bias), 40),
+                ms=kernel_device_ms(kern, 40, "decode_kernel", "decode_attention", 2),
                 plain_ms=time_ms(lambda: decode_attention_ref(
                     q, *caches[next(it) % n_copies], bias), 20),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q[:, :, None], *caches[next(it) % n_copies], attn_mask=mask4,
-                    enable_gqa=True), 40),
+                library_ms=library_device_ms(sdpa, 40),
+                event_ms=time_ms(kern, 40), event_library_ms=time_ms(sdpa, 40),
                 **bound(nbytes(q, k, v, bias, o), 4 * B * H * hd * L,
                         "bfloat16"),
                 shape=f"B={B} H={H} KV={KV} L={L} hd={hd} bf16, per-slot bias")
+            _log_event_row("decode_attention", rows["decode_attention"], "")
         del caches, k, v
     # jamba's attention layers: 4 slots of its serving run's 8192-slot
     # cache, H=64, KV=8 (G=8); two caches of 134 MB, each beyond L2
@@ -353,17 +369,26 @@ def kernel_phase(dev):
     err = _check(f"decode bf16 jamba B={B} H={JH} KV={JKV} L={JL}", o,
                  decode_attention_ref(q, k, v, jbias), tol[bf16])
     it = iter(range(10**9))
+
+    def kern():
+        return decode_attention_fwd(q, *caches[next(it) % 2], jbias)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], *caches[next(it) % 2], attn_mask=jbias[:, None, None, :],
+            enable_gqa=True)
+
     rows["decode_attention"].update(_prefixed("jamba_", dict(
         max_abs_err=err,
-        ms=time_ms(lambda: decode_attention_fwd(q, *caches[next(it) % 2], jbias), 40),
+        ms=kernel_device_ms(kern, 40, "decode_kernel", "decode_attention", 2),
         plain_ms=time_ms(lambda: decode_attention_ref(
             q, *caches[next(it) % 2], jbias), 20),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], *caches[next(it) % 2], attn_mask=jbias[:, None, None, :],
-            enable_gqa=True), 40),
+        library_ms=library_device_ms(sdpa, 40),
+        event_ms=time_ms(kern, 40), event_library_ms=time_ms(sdpa, 40),
         **bound(nbytes(q, k, v, jbias, o), 4 * B * JH * hd * JL, "bfloat16"),
         shape=f"B={B} H={JH} KV={JKV} L={JL} hd={hd} bf16, per-slot bias")))
     _log_shape_row("decode_attention jamba", rows["decode_attention"])
+    _log_event_row("decode_attention jamba", rows["decode_attention"])
     rows["decode_attention"]["max_abs_err"] = max(err, rows["decode_attention"]["max_abs_err"])
     del caches, k, v, o
     q = randn((B, H, hd), bf16)
@@ -397,16 +422,23 @@ def kernel_phase(dev):
         if dtype == bf16:
             it = iter(range(10**9))
             gathered = B * P * bs * KV * hd * 2 * 2
+
+            def kern():
+                return paged_decode_attention_fwd(q, *pl[next(it) % n_copies], table, bias)
+
             rows["paged_decode_attention"] = dict(
                 max_abs_err=err,
-                ms=time_ms(lambda: paged_decode_attention_fwd(
-                    q, *pl[next(it) % n_copies], table, bias), 40),
+                ms=kernel_device_ms(kern, 40, "decode_kernel", "paged_decode_attention", 2),
+                event_ms=time_ms(kern, 40),
                 plain_ms=time_ms(lambda: paged_decode_attention_ref(
                     q, *pl[next(it) % n_copies], table, bias), 20),
                 library_ms=None,  # no single PyTorch call gathers through a page table
                 **bound(nbytes(q, table, bias, o) + gathered,
                         4 * B * H * hd * L, "bfloat16"),
                 shape=f"B={B} H={H} KV={KV} P={P} bs={bs} hd={hd} bf16 pool")
+            log(f"  paged_decode_attention: ms={rows['paged_decode_attention']['ms']:.5f} "
+                f"(profiler, both kernels) event_ms="
+                f"{rows['paged_decode_attention']['event_ms']:.5f} (back-to-back calls)")
         del pl, kp, vp
     kf, vf = pools(f32, 1)[0]
     qk, ks = quantize_int8(kf)
@@ -418,8 +450,9 @@ def kernel_phase(dev):
         _check(f"paged int8 pool, q {dtype}", o,
                paged_decode_attention_ref(q, qk, qv, table, bias, k_scale=ks,
                                           v_scale=vs), tol[dtype])
-    ms8 = time_ms(lambda: paged_decode_attention_fwd(
-        q, qk, qv, table, bias, k_scale=ks, v_scale=vs), 40)
+    ms8 = kernel_device_ms(lambda: paged_decode_attention_fwd(
+        q, qk, qv, table, bias, k_scale=ks, v_scale=vs), 40, "decode_kernel",
+        "paged_decode_attention", 2)
     b8 = bound(nbytes(q, table, bias, o) + B * P * bs * KV * (hd + 4) * 2,
                4 * B * H * hd * L, "bfloat16")["bound_ms"]
     log(f"  paged int8 pool (bf16 q): ms={ms8:.4f} bound_ms={b8:.4f} "
@@ -808,13 +841,15 @@ def ssm_bwd_kernel_phase(dev):
     return row, b4
 
 
-def kernel_device_ms(fn, n, kernel, op):
-    """Mean device time per launch of the CUDA kernels whose name holds
+def kernel_device_ms(fn, n, kernel, op, per_call=1):
+    """Mean device time per call of the CUDA kernels whose name holds
     ``kernel``, from torch.profiler over ``n`` calls of ``fn``, each of
-    which must launch one: the wrapper's counter ``LAUNCHES[op]`` must rise
-    by exactly ``n``. The mean is over the launches the profiler recorded,
-    which may drop a few of its activity records (CUPTI once reported 99 of
-    100 launches on the card); fewer than nine in ten recorded fails."""
+    which must launch the op once (the wrapper's counter ``LAUNCHES[op]``
+    must rise by exactly ``n``) and ``per_call`` such kernels (decode
+    attention: its split pass and its combine). The mean is over the
+    launches the profiler recorded, which may drop a few of its activity
+    records (CUPTI once reported 99 of 100 launches on the card); fewer than
+    nine in ten recorded fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -834,13 +869,32 @@ def kernel_device_ms(fn, n, kernel, op):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and kernel in e.key]
     recorded = sum(e.count for e in events)
-    if not n - n // 10 <= recorded <= n:
+    want = per_call * n
+    if not want - want // 10 <= recorded <= want:
         raise AssertionError(f"profiler recorded {recorded} launches of {kernel} "
-                             f"for {n} issued")
-    if recorded != n:
-        log(f"  profiler recorded {recorded} of {n} launches of {kernel}; "
+                             f"for {want} issued")
+    if recorded != want:
+        log(f"  profiler recorded {recorded} of {want} launches of {kernel}; "
             f"mean over those recorded")
-    return sum(e.self_device_time_total for e in events) / recorded / 1e3
+    return sum(e.self_device_time_total for e in events) * per_call / recorded / 1e3
+
+
+def library_device_ms(fn, n):
+    """Mean device time per call of every CUDA kernel that ``n`` calls of a
+    library function launch, from torch.profiler (SDPA beside decode
+    attention, whose back-to-back calls the host paces)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
 
 
 def decode_profile(fn, n=5):
@@ -1750,7 +1804,7 @@ def main(argv=None):
             "shape": r["shape"],
             "launches_by_path": {path: n[name] for path, n in by_path.items()},
             **{k: v for k, v in r.items()
-               if k.startswith(("decode_", "train_", "jamba_"))}})
+               if k.startswith(("decode_", "train_", "jamba_", "event_"))}})
     log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; f32 gradient "
         f"check passed: rwkv6-3b worst {worst_grad:.3e} <= {LOGIT_RTOL}, full depth "
         f"{depth_ratio:.3f} <= 1 of its limit; jamba block in place "

@@ -74,6 +74,20 @@ template <> __device__ __forceinline__ float round_like<__nv_bfloat16>(float x) 
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+#define REPRO_LOG2E 1.4426950408889634f
+
+// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0): the
+// bf16 attention paths' softmax, as exp2((s - m) * log2 e)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

@@ -5,17 +5,24 @@ cache) and ``paged_decode_attention_fwd`` (block pool + page table).
 
 Both wrappers fill one ``DecodeParams`` and launch the same device routine:
 the dense layout is the paged one with the identity table, so the two give
-bitwise-identical results on the same cache contents.
+bitwise-identical results on the same cache contents. The routine splits
+each sequence's keys across CTAs and merges the per-split partials in a
+second kernel; ``split_plan`` picks the split from the shapes and the SM
+count alone, never from the layout.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import _build
+
+SPLIT_ALIGN = 16  # keys a warp takes from each chunk (KW in the source)
+CTAS_PER_SM = 2   # the split puts at least this many CTAs on every SM
 
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
@@ -28,6 +35,7 @@ class DecodeParams(ctypes.Structure):
     _fields_ = [
         ("q", _P), ("k", _P), ("v", _P), ("k_scale", _P), ("v_scale", _P),
         ("table", _P), ("bias", _P), ("o", _P),
+        ("part", _P), ("part_m", _P), ("part_l", _P),
         ("q_sb", _I64), ("q_sh", _I64),
         ("o_sb", _I64), ("o_sh", _I64),
         ("k_sbase", _I64), ("k_stok", _I64), ("k_skv", _I64),
@@ -37,10 +45,26 @@ class DecodeParams(ctypes.Structure):
         ("table_sb", _I64),
         ("B", _I32), ("H", _I32), ("KV", _I32), ("L", _I32), ("hd", _I32),
         ("block_size", _I32),
-        ("paged", _I32),
+        ("paged", _I32), ("n_split", _I32), ("split_len", _I32),
         ("scale", ctypes.c_float), ("softcap", ctypes.c_float),
         ("q_dtype", _I32), ("kv_dtype", _I32),
     ]
+
+
+def split_plan(B, KV, L, n_sm):
+    """``(n_split, split_len)`` of a decode launch: enough splits of each
+    (sequence, kv head) for ``CTAS_PER_SM`` CTAs on each of ``n_sm`` SMs,
+    each a whole number of ``SPLIT_ALIGN`` keys, and every split holding at
+    least one of the ``L`` keys. It reads no layout, so a paged call and a
+    dense call of one shape split alike."""
+    want = -(-CTAS_PER_SM * n_sm // (B * KV))
+    split_len = max(SPLIT_ALIGN, L // want // SPLIT_ALIGN * SPLIT_ALIGN)
+    return -(-L // split_len), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _entry():
@@ -69,10 +93,65 @@ def _check_common(q, k, v, bias, KV):
     _build.check_rows(v, "v")
 
 
+def plan(prm: DecodeParams, n_sm: int) -> int:
+    """Fill ``prm``'s split from ``split_plan`` (shapes and SM count only)
+    and return the number of partial rows, B * H * n_split."""
+    prm.n_split, prm.split_len = split_plan(prm.B, prm.KV, prm.L, n_sm)
+    return prm.B * prm.H * prm.n_split
+
+
 def _launch(prm: DecodeParams, device, name: str):
+    """Plan the split, give the routine its f32 partials, launch it (the
+    split pass and the combine) and count one launch of ``name``."""
+    rows = plan(prm, _sm_count(device.index or 0))
+    part = torch.empty(rows * (prm.hd + 2), dtype=torch.float32, device=device)
+    prm.part, prm.part_m, prm.part_l = (
+        part.data_ptr(), part.data_ptr() + 4 * rows * prm.hd,
+        part.data_ptr() + 4 * rows * (prm.hd + 1))
     lib, fn = _entry()
     _build.check(lib, fn(ctypes.byref(prm), _build.stream_ptr(device)), name)
     LAUNCHES[name] += 1
+
+
+def dense_params(q, k, v, bias, softcap=0.0) -> DecodeParams:
+    """The routine's parameters for a dense cache (the identity table)."""
+    B, H, hd = q.shape
+    KV, L = k.shape[1], k.shape[2]
+    code = _build.dtype_code(q)
+    return DecodeParams(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None,
+        bias.data_ptr(), None, None, None, None,
+        q.stride(0), q.stride(1), H * hd, hd,
+        k.stride(0), k.stride(2), k.stride(1),
+        v.stride(0), v.stride(2), v.stride(1),
+        0, 0, 0,
+        bias.stride(0) if bias.dim() == 2 else 0,
+        0,
+        B, H, KV, L, hd, 1, 0, 0, 0,
+        hd**-0.5, float(softcap or 0.0), code, code)
+
+
+def paged_params(q, k_pages, v_pages, page_table, bias, k_scale=None,
+                 v_scale=None, softcap=0.0) -> DecodeParams:
+    """The routine's parameters for a paged pool and its page table."""
+    B, H, hd = q.shape
+    _, bs, KV, _ = k_pages.shape
+    L = page_table.shape[1] * bs
+    scales, s_strides = (None, None), (0, 0, 0)
+    if k_scale is not None:
+        scales = (k_scale.data_ptr(), v_scale.data_ptr())
+        s_strides = (k_scale.stride(0), k_scale.stride(1), k_scale.stride(2))
+    return DecodeParams(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+        page_table.data_ptr(), bias.data_ptr(), None, None, None, None,
+        q.stride(0), q.stride(1), H * hd, hd,
+        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
+        *s_strides,
+        bias.stride(0), page_table.stride(0),
+        B, H, KV, L, hd, bs, 1, 0, 0,
+        hd**-0.5, float(softcap or 0.0),
+        _build.dtype_code(q), _build.dtype_code(k_pages))
 
 
 def decode_attention_fwd(q, k, v, bias, *, softcap=0.0):
@@ -89,18 +168,8 @@ def decode_attention_fwd(q, k, v, bias, *, softcap=0.0):
     if bias.shape not in ((L,), (B, L)) or bias.stride(-1) != 1:
         raise ValueError(f"bias shape {tuple(bias.shape)}; need ({L},) or ({B},{L})")
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    code = _build.dtype_code(q)
-    prm = DecodeParams(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None,
-        bias.data_ptr(), out.data_ptr(),
-        q.stride(0), q.stride(1), out.stride(0), out.stride(1),
-        k.stride(0), k.stride(2), k.stride(1),
-        v.stride(0), v.stride(2), v.stride(1),
-        0, 0, 0,
-        bias.stride(0) if bias.dim() == 2 else 0,
-        0,
-        B, H, KV, L, hd, 1, 0,
-        hd**-0.5, float(softcap or 0.0), code, code)
+    prm = dense_params(q, k, v, bias, softcap)
+    prm.o = out.data_ptr()
     _launch(prm, q.device, "decode_attention")
     return out
 
@@ -129,27 +198,15 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, page_table, bias, *,
                          f"with a unit last stride")
     if bias.shape != (B, L) or bias.stride(1) != 1:
         raise ValueError(f"bias shape {tuple(bias.shape)}; need ({B},{L})")
-    scales = (None, None)
-    s_strides = (0, 0, 0)
     if quantized:
-        for s in (k_scale, v_scale):
-            if (s.dtype != torch.float32 or s.shape != (n_phys, bs, KV, 1)
-                    or not s.is_cuda or s.stride() != k_scale.stride()):
+        for sc in (k_scale, v_scale):
+            if (sc.dtype != torch.float32 or sc.shape != (n_phys, bs, KV, 1)
+                    or not sc.is_cuda or sc.stride() != k_scale.stride()):
                 raise ValueError(f"scales must be ({n_phys},{bs},{KV},1) f32 "
                                  f"CUDA tensors with equal strides")
-        scales = (k_scale.data_ptr(), v_scale.data_ptr())
-        s_strides = (k_scale.stride(0), k_scale.stride(1), k_scale.stride(2))
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    prm = DecodeParams(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
-        page_table.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        q.stride(0), q.stride(1), out.stride(0), out.stride(1),
-        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-        v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
-        *s_strides,
-        bias.stride(0), page_table.stride(0),
-        B, H, KV, L, hd, bs, 1,
-        hd**-0.5, float(softcap or 0.0),
-        _build.dtype_code(q), _build.dtype_code(k_pages))
+    prm = paged_params(q, k_pages, v_pages, page_table, bias, k_scale, v_scale,
+                       softcap)
+    prm.o = out.data_ptr()
     _launch(prm, q.device, "paged_decode_attention")
     return out

@@ -66,3 +66,46 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, bias, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgl,blkh->bkgh", p.to(v.dtype).float(), v.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def split_partials(q, k, v, bias, n_split, split_len, *, softcap=0.0):
+    """Per-split softmax partials of ``decode_attention_ref``'s inputs, as
+    the split pass of the CUDA routine keeps them: for each split of
+    ``split_len`` keys, the f32 running max ``m``, the sum of exponentials
+    ``l`` and the unnormalised ``acc`` of probabilities (rounded to V's
+    dtype) times V. Returns m, l (B, H, n_split) and acc (B, H, n_split, hd).
+    Used by the tests to check the combine."""
+    B, H, hd = q.shape
+    KV, L = k.shape[1], k.shape[2]
+    G = H // KV
+    s = torch.einsum("bkgh,bklh->bkgl", q.reshape(B, KV, G, hd).float(),
+                     k.float()) * hd**-0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = (s + _bias_rows(bias)).reshape(B, H, L)
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        part = s[..., i * split_len:(i + 1) * split_len]
+        m = part.amax(-1)
+        p = torch.exp(part - m[..., None])
+        vi = v[:, :, i * split_len:(i + 1) * split_len].float()
+        acc = torch.einsum("bkgl,bklh->bkgh",
+                           p.to(v.dtype).float().reshape(B, KV, G, -1), vi)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(acc.reshape(B, H, hd))
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+
+
+def combine(m, l, acc):
+    """Merge per-split partials as the combine kernel does, in split order:
+    weights exp(m_i - max m), the denominator floored at 1e-37.
+    m, l: (B, H, n_split); acc: (B, H, n_split, hd). Returns (B, H, hd) f32."""
+    top = m.amax(-1, keepdim=True)
+    o = torch.zeros(acc.shape[:2] + acc.shape[3:], dtype=torch.float32)
+    den = torch.zeros(m.shape[:2], dtype=torch.float32)
+    for i in range(m.shape[-1]):
+        w = torch.exp(m[..., i] - top[..., 0])
+        o = o + acc[:, :, i] * w[..., None]
+        den = den + l[..., i] * w
+    return o / den.clamp_min(1e-37)[..., None]

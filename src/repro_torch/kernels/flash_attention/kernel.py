@@ -5,7 +5,10 @@
 The kernel reads q/k/v through their strides (unit last stride), so the model
 passes transposed views of its (B, S, heads, hd) projections without a copy,
 and writes the output into a (B, H, Sq, hd) view of a (B, Sq, H, hd) buffer,
-which the model reshapes back for free.
+which the model reshapes back for free. The bf16 kernel loads its tiles with
+TMA through tensor maps built from those strides: a view must then start on
+16 bytes and step by whole 16 bytes in every dimension but the last (TMA's
+rules), or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -48,6 +51,27 @@ def _entry():
     return lib, fn
 
 
+def _tma_strides(t, name):
+    """``t``'s (batch, head, seq) element strides for a TMA tensor map,
+    raising on a view that breaks TMA's rules (16-byte base, strides of
+    whole 16 bytes). A dimension of size 1 is never stepped over, so its
+    stride is replaced by a legal one."""
+    vec = 16 // t.element_size()
+    if t.data_ptr() % 16 or t.stride(-1) != 1:
+        raise ValueError(f"{name}: TMA needs a 16-byte aligned base and a unit "
+                         f"last stride (base {t.data_ptr() % 16} bytes off, "
+                         f"strides {t.stride()})")
+    out = []
+    for n, st in zip(t.shape[:3], t.stride()[:3]):
+        if n == 1:
+            st = vec
+        elif st % vec:
+            raise ValueError(f"{name}: TMA needs strides of whole 16 bytes; "
+                             f"strides {t.stride()} of {t.dtype}")
+        out.append(st)
+    return out
+
+
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
                         prefix_len=0, q_offset=0):
     """q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd) CUDA tensors of one dtype (f32 or
@@ -67,11 +91,16 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
                          f"v={tuple(v.shape)}")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
-        _build.check_rows(t, name)
+    if q.dtype == torch.bfloat16:
+        strides = [_tma_strides(t, name) for t, name in ((q, "q"), (k, "k"), (v, "v"))]
+    else:
+        for t, name in ((q, "q"), (k, "k"), (v, "v")):
+            _build.check_rows(t, name)
+        strides = [t.stride()[:3] for t in (q, k, v)]
+    _build.check_rows(out, "out")
     prm = FlashParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *strides[0], *strides[1], *strides[2], *out.stride()[:3],
         B, H, KV, Sq, Sk, hd,
         int(bool(causal)), int(window or 0), int(prefix_len or 0),
         int(q_offset), hd**-0.5, float(softcap or 0.0),

@@ -180,6 +180,173 @@ def test_dense_and_paged_kernels_bitwise_identical(cuda, dtype):
     assert torch.equal(dense, paged)
 
 
+# ---- the split-KV decode routine (B1/B3): splits, head groups, tails
+
+def _decode_case(gen, dev, dtype, B, KV, G, L, hd, null_row=False):
+    q = _randn(gen, (B, KV * G, hd), dtype, dev)
+    k = _randn(gen, (B, L, KV, hd), dtype, dev).transpose(1, 2)
+    v = _randn(gen, (B, L, KV, hd), dtype, dev).transpose(1, 2)
+    valid = torch.tensor([L, max(1, L // 3), 1, max(1, L - 17)][:B], device=dev)
+    bias = torch.where(torch.arange(L, device=dev)[None] < valid[:, None],
+                       0.0, NEG_INF).float()
+    if null_row:  # a NULL slot: every position masked, the output averages V
+        bias[1] = NEG_INF
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("L,G,hd", [
+    (1, 8, 128),      # one key
+    (15, 12, 64),     # fewer keys than one split
+    (1000, 1, 32),    # L not a multiple of the split length
+    (1000, 4, 256),
+    (4099, 16, 128),
+    (333, 12, 128),
+    (500, 20, 64),    # two head groups of one kv head
+], ids=lambda x: str(x))
+def test_decode_split_kernel_matches_plain(cuda, dtype, L, G, hd):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, bias = _decode_case(gen, cuda, dtype, 4, 2, G, L, hd)
+    o = decode_attention_fwd(q, k, v, bias, softcap=30.0 if G == 12 else 0.0)
+    ref = decode_attention_ref(q, k, v, bias, softcap=30.0 if G == 12 else 0.0)
+    torch.testing.assert_close(o.float(), ref.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_decode_null_slot_row_is_finite_and_matches_plain(cuda, dtype, layout):
+    """A row whose bias is all NEG_INF (a NULL slot) averages V in every
+    split, like the plain version, and stays finite."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    B, KV, G, hd, bs, L = 4, 2, 12, 128, 16, 1024
+    q, k, v, bias = _decode_case(gen, cuda, dtype, B, KV, G, L, hd, null_row=True)
+    if layout == "dense":
+        o = decode_attention_fwd(q, k, v, bias)
+        ref = decode_attention_ref(q, k, v, bias)
+    else:
+        P = L // bs
+        table = (torch.randperm(B * P, generator=gen, device=cuda) + 2).reshape(B, P)
+        kp = torch.zeros((2 + B * P, bs, KV, hd), dtype=dtype, device=cuda)
+        vp = torch.zeros_like(kp)
+        kp[table.long()] = k.transpose(1, 2).reshape(B, P, bs, KV, hd)
+        vp[table.long()] = v.transpose(1, 2).reshape(B, P, bs, KV, hd)
+        table = table.to(torch.int32)
+        o = paged_decode_attention_fwd(q, kp, vp, table, bias)
+        ref = paged_decode_attention_ref(q, kp, vp, table, bias)
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), ref.float(), atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("G,hd,P", [(8, 128, 64), (12, 64, 7), (1, 256, 3), (16, 32, 40)],
+                         ids=lambda x: str(x))
+def test_paged_split_kernel_int8_matches_plain(cuda, qdtype, G, hd, P):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, kp, vp, table, bias = _paged_case(gen, cuda, torch.float32, H=2 * G, hd=hd, P=P)
+    qk, ks = quantize_int8(kp)
+    qv, vs = quantize_int8(vp)
+    q = q.to(qdtype)
+    o = paged_decode_attention_fwd(q, qk, qv, table, bias, k_scale=ks, v_scale=vs)
+    ref = paged_decode_attention_ref(q, qk, qv, table, bias, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(o.float(), ref.float(), atol=_tol(qdtype), rtol=_tol(qdtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dense_and_paged_bitwise_identical_across_splits_and_repeatable(cuda, dtype):
+    """jamba's decode shape (G=8) at an L of many splits: paged equals dense
+    bit for bit, and a second run of each equals the first."""
+    from repro_torch.kernels.decode_attention.kernel import split_plan
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    B, KV, G, hd, bs, L = 4, 8, 8, 128, 16, 3000
+    n_split, _ = split_plan(B, KV, L - L % bs, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert n_split > 1
+    L -= L % bs
+    P = L // bs
+    q, k, v, bias = _decode_case(gen, cuda, dtype, B, KV, G, L, hd)
+    table = (torch.randperm(B * P, generator=gen, device=cuda) + 2).reshape(B, P)
+    kp = torch.zeros((2 + B * P, bs, KV, hd), dtype=dtype, device=cuda)
+    vp = torch.zeros_like(kp)
+    kp[table.long()] = k.transpose(1, 2).reshape(B, P, bs, KV, hd)
+    vp[table.long()] = v.transpose(1, 2).reshape(B, P, bs, KV, hd)
+    table = table.to(torch.int32)
+    dense = decode_attention_fwd(q, k, v, bias)
+    paged = paged_decode_attention_fwd(q, kp, vp, table, bias)
+    assert torch.equal(dense, paged)
+    assert torch.equal(dense, decode_attention_fwd(q, k, v, bias))
+    assert torch.equal(paged, paged_decode_attention_fwd(q, kp, vp, table, bias))
+
+
+# ---- the wgmma/TMA flash kernel (B2, bf16): tiles, masks, views
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("S", [1, 63, 65, 129, 200, 257])
+def test_flash_bf16_ragged_lengths(cuda, hd, S):
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    q = _randn(gen, (2, 4, S, hd), torch.bfloat16, cuda)
+    k = _randn(gen, (2, 2, S, hd), torch.bfloat16, cuda)
+    v = _randn(gen, (2, 2, S, hd), torch.bfloat16, cuda)
+    o = flash_attention_fwd(q, k, v)
+    torch.testing.assert_close(o.float(), attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("kw", [
+    dict(window=100), dict(prefix_len=70), dict(softcap=30.0),
+    dict(window=64, softcap=20.0, prefix_len=10),
+], ids=["window", "prefix", "softcap", "window_softcap_prefix"])
+def test_flash_bf16_masks_at_every_head_dim(cuda, hd, kw):
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    S = 333
+    q = _randn(gen, (1, 8, S, hd), torch.bfloat16, cuda)
+    k = _randn(gen, (1, 2, S, hd), torch.bfloat16, cuda)
+    v = _randn(gen, (1, 2, S, hd), torch.bfloat16, cuda)
+    o = flash_attention_fwd(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), attention_ref(q, k, v, **kw).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bf16_q_offset_against_a_longer_cache(cuda, hd):
+    """A chunk of 100 queries at positions 150.. against 250 keys."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    q = _randn(gen, (2, 6, 100, hd), torch.bfloat16, cuda)
+    k = _randn(gen, (2, 2, 250, hd), torch.bfloat16, cuda)
+    v = _randn(gen, (2, 2, 250, hd), torch.bfloat16, cuda)
+    for kw in (dict(q_offset=150), dict(q_offset=150, window=80)):
+        o = flash_attention_fwd(q, k, v, **kw)
+        torch.testing.assert_close(o.float(), attention_ref(q, k, v, **kw).float(),
+                                   atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("hd", [32, 128, 256])
+def test_flash_bf16_reads_model_layout_views_and_is_repeatable(cuda, hd):
+    """(B,S,H,hd) projections transposed without a copy load through tensor
+    maps built from their strides; two runs are bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    B, S, H, KV = 2, 300, 8, 2
+    q = _randn(gen, (B, S, H, hd), torch.bfloat16, cuda).transpose(1, 2)
+    k = _randn(gen, (B, S, KV, hd), torch.bfloat16, cuda).transpose(1, 2)
+    v = _randn(gen, (B, S, KV, hd), torch.bfloat16, cuda).transpose(1, 2)
+    o = flash_attention_fwd(q, k, v, window=128)
+    ref = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), window=128)
+    torch.testing.assert_close(o.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(o, flash_attention_fwd(q, k, v, window=128))
+
+
+def test_flash_bf16_refuses_views_that_break_tma_rules(cuda):
+    base = torch.zeros(1, 64, 4, 136, dtype=torch.bfloat16, device=cuda)
+    good = base[..., :128].transpose(1, 2)
+    shifted = base[..., 1:129].transpose(1, 2)  # base 2 bytes past 16
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_fwd(shifted, good, good)
+    odd = torch.zeros(1, 64, 4, 130, dtype=torch.bfloat16, device=cuda)[..., :128]
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_fwd(good, odd.transpose(1, 2), good)  # 260-byte row stride
+
+
 def test_kernels_refuse_unsupported_head_dim(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):

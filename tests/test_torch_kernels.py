@@ -34,11 +34,14 @@ from repro.kernels.flash_attention.ref import attention_ref as j_flash_ref  # no
 from repro.optim.compress import quantize_int8 as j_quantize  # noqa: E402
 from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
-    DecodeParams, decode_attention_fwd, paged_decode_attention_fwd)
+    SPLIT_ALIGN, DecodeParams, decode_attention_fwd, dense_params,
+    paged_decode_attention_fwd, paged_params, plan, split_plan)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    combine, decode_attention_ref, split_partials)
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    FlashParams, flash_attention_fwd)
+    FlashParams, _tma_strides, flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.kernel import (  # noqa: E402
     Rwkv6BwdParams, Rwkv6Params, rwkv6_scan_bwd, rwkv6_scan_fwd)
@@ -143,6 +146,141 @@ def test_decode_per_sequence_bias_matches_rowwise_reference():
         ref = j_decode_ref(*(jnp.asarray(a[b:b + 1]) for a in (q, k, v)),
                            jnp.asarray(bias[b]))
         _close(o[b:b + 1], ref)
+
+
+# ------------------------------------- the split-KV plan and the combine (B1/B3)
+
+H100_SMS = 132
+# (B, KV, L) of the main path: starcoder2-3b's 4 slots over its 4096-slot
+# window and 8192-slot paged tables, jamba's 4 slots over 8192 slots, and
+# the edges (one key, fewer keys than a split, many slots)
+MAIN_SHAPES = [(4, 2, 4096), (4, 2, 8192), (4, 8, 8192), (4, 2, 1), (4, 8, 17),
+               (1, 2, 300), (64, 8, 8192)]
+
+
+@pytest.mark.parametrize("B,KV,L", MAIN_SHAPES, ids=lambda x: str(x))
+def test_decode_split_plan_keeps_a_key_in_every_split(B, KV, L):
+    n_split, split_len = split_plan(B, KV, L, H100_SMS)
+    assert split_len % SPLIT_ALIGN == 0 and split_len >= SPLIT_ALIGN
+    assert n_split * split_len >= L > (n_split - 1) * split_len  # last split: >= 1 key
+    if L >= 2 * H100_SMS * SPLIT_ALIGN // (B * KV):  # long enough to fill the card
+        assert B * KV * n_split >= 2 * H100_SMS
+
+
+def test_decode_split_plan_at_the_main_path_shapes():
+    """starcoder2-3b's decode (B=4, KV=2, L=4096) and jamba's (B=4, KV=8,
+    L=8192) on 132 SMs: 296 and 320 CTAs, over two per SM."""
+    assert split_plan(4, 2, 4096, H100_SMS) == (37, 112)
+    assert split_plan(4, 8, 8192, H100_SMS) == (10, 896)
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+def test_decode_split_plan_is_independent_of_the_layout(bs):
+    """A slot's paged call and its dense call fill the routine's parameters
+    with the same split, whatever the page size."""
+    rng = np.random.default_rng(21)
+    B, H, KV, hd, L = 4, 24, 2, 128, 4096
+    P = L // bs
+    q = _t(rng.normal(size=(B, H, hd)).astype(np.float32))
+    k = _t(rng.normal(size=(B, L, KV, hd)).astype(np.float32)).transpose(1, 2)
+    bias = torch.zeros(B, L)
+    pool = torch.zeros(2 + B * P, bs, KV, hd)
+    table = torch.arange(B * P, dtype=torch.int32).reshape(B, P) + 2
+    dense = dense_params(q, k, k, bias)
+    paged = paged_params(q, pool, pool, table, bias)
+    assert dense.L == paged.L == L and not dense.paged and paged.paged
+    assert plan(dense, H100_SMS) == plan(paged, H100_SMS) == B * H * 37
+    assert (dense.n_split, dense.split_len) == (paged.n_split, paged.split_len) == (37, 112)
+
+
+def test_decode_split_align_matches_cuda_source():
+    """Split lengths are whole multiples of the keys a warp takes from each
+    chunk (KW = CH / NWARP), which the C entry checks."""
+    text = (SRC / "repro_torch" / "csrc" / "decode_attention.cu").read_text()
+    ch = int(re.search(r"constexpr int CH = (\d+);", text).group(1))
+    nwarp = int(re.search(r"constexpr int NWARP = (\d+);", text).group(1))
+    assert ch // nwarp == SPLIT_ALIGN
+
+
+def _split_case(rng, B, H, KV, L, hd, valid):
+    q = rng.normal(size=(B, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, KV, L, hd)).astype(np.float32)
+    v = rng.normal(size=(B, KV, L, hd)).astype(np.float32)
+    bias = np.where(np.arange(L)[None] < np.asarray(valid)[:, None], 0.0,
+                    NEG_INF).astype(np.float32)
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("L,n_sm,valid", [
+    (320, 132, (320, 100, 0, 1)),   # 20 splits of 16; a NULL row (every key masked)
+    (320, 20, (320, 150, 1, 0)),    # 5 splits of 64
+    (320, 10, (300, 320, 77, 0)),   # splits of 96, 96, 96 and a ragged 32
+    (256, 1, (256, 1, 0, 200)),     # one split: the single pass itself
+], ids=["many", "64", "ragged", "one"])
+def test_split_then_combine_equals_single_pass_and_reference(L, n_sm, valid):
+    """The split pass's partials merged as the combine kernel merges them
+    equal the plain single pass and the reference's Pallas decode kernel in
+    interpret mode, row by row (the reference takes one shared bias row),
+    within f32 rounding; a row whose every key is masked averages V."""
+    rng = np.random.default_rng(22)
+    B, H, KV, hd = 4, 8, 2, 32
+    q, k, v, bias = _split_case(rng, B, H, KV, L, hd, [max(x, 0) for x in valid])
+    bias[[i for i, x in enumerate(valid) if x == 0]] = NEG_INF
+    n_split, split_len = split_plan(B, KV, L, n_sm)
+    assert (n_split, split_len) == {132: (20, 16), 20: (5, 64), 10: (4, 96), 1: (1, 256)}[n_sm]
+    tq, tk, tv, tb = map(_t, (q, k, v, bias))
+    o = combine(*split_partials(tq, tk, tv, tb, n_split, split_len))
+    _close(o, decode_attention_ref(tq, tk, tv, tb))
+    for b in range(B):
+        args = tuple(jnp.asarray(a[b:b + 1]) for a in (q, k, v)) + (jnp.asarray(bias[b]),)
+        _close(o[b:b + 1], j_decode_kernel(*args, block_l=64, interpret=True))
+    null = [i for i, x in enumerate(valid) if x == 0]
+    if null:
+        mean_v = tv[null].float().mean(2).reshape(len(null), KV, 1, hd).expand(
+            -1, -1, H // KV, -1).reshape(len(null), H, hd)
+        _close(o[null], mean_v.numpy())
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_split_then_combine_bf16_and_softcap(softcap):
+    """bf16 inputs (probabilities rounded to bf16 before PV, per split) and
+    softcap: split-then-combine within the bf16 tolerance of the plain
+    single pass."""
+    rng = np.random.default_rng(23)
+    B, H, KV, L, hd = 2, 12, 1, 333, 64
+    q, k, v, bias = _split_case(rng, B, H, KV, L, hd, (333, 40))
+    tq, tk, tv = (_t(a).bfloat16() for a in (q, k, v))
+    tb = _t(bias)
+    n_split, split_len = split_plan(B, KV, L, 132)
+    assert n_split > 1 and L % split_len
+    o = combine(*split_partials(tq, tk, tv, tb, n_split, split_len, softcap=softcap))
+    _close(o, decode_attention_ref(tq, tk, tv, tb, softcap=softcap).float(), atol=2e-2)
+
+
+# ------------------------------------------- flash: TMA's rules on the views
+
+
+def test_flash_tma_strides_of_model_layout_views():
+    """The model's (B,S,H,hd) bf16 projections, transposed: the tensor map
+    takes their (batch, head, seq) strides; a size-1 batch gets a legal one."""
+    x = torch.zeros(1, 100, 8, 128, dtype=torch.bfloat16).transpose(1, 2)
+    assert _tma_strides(x, "q") == [8, 128, 8 * 128]
+    y = torch.zeros(2, 100, 8, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert _tma_strides(y, "k") == [100 * 8 * 64, 64, 8 * 64]
+
+
+@pytest.mark.parametrize("case", ["base", "stride", "last"])
+def test_flash_tma_strides_refuse_views_that_break_the_rules(case):
+    base = torch.zeros(2, 64, 4, 136, dtype=torch.bfloat16)
+    if case == "base":
+        t = base[..., 1:129].transpose(1, 2)          # 2 bytes past 16
+    elif case == "stride":
+        t = torch.zeros(2, 64, 4, 130, dtype=torch.bfloat16)[..., :128].transpose(1, 2)
+    else:
+        t = base.transpose(1, 3)                      # last stride not 1
+    assert base.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="TMA"):
+        _tma_strides(t, "q")
 
 
 # ---------------------------------------------------------- paged decode (B1)
