@@ -18,7 +18,9 @@ checkout of the repository. Phases (none catches its own failure):
    and hd=256 cases; tolerances atol 2e-5 for f32 and int8-dequantised
    pools, 2e-2 for bf16. The RWKV-6 scan at rwkv6-3b's (H=40, hd=64): a
    4500-token prefill and a 4-slot decode step in bf16, an f32 prefill, and
-   two value-column splits bitwise equal; tolerance atol = rtol = 1e-3.
+   the plan's value-column split bitwise equal to two others (4 and 16);
+   tolerance atol = rtol = 1e-3; its launch plan logged, its prefill and
+   save_states calls, and B7, timed by profiler device time beside events.
    The Mamba selective scan at jamba's (Di=16384, N=16, f32): a 4500-token
    prefill, ragged S = 37 and 130, and a 4-slot decode step with the state
    updated in place, two runs bitwise equal; tolerance atol = rtol = 1e-4.
@@ -55,7 +57,8 @@ checkout of the repository. Phases (none catches its own failure):
    disk). Counts zeroed before the run:
    3 x 2 x 32 x 2 = 384 scan launches (forward and remat recompute), 192
    backward launches, no plain call; finite losses; step time, tokens/s,
-   peak memory and the device's busy share of one step. Then one
+   peak memory and the device's busy share of one step, with B5's and
+   B7's device ms in that step as lines of their own. Then one
    full-width jamba block (``JAMBA_BLOCK``, bf16, 18.0 GB) with the
    config's bf16 gradient accumulation and int8 moments: global batch
    8 x 1024 tokens in its 8 microbatches, remat "full", 3 steps, no
@@ -68,7 +71,8 @@ checkout of the repository. Phases (none catches its own failure):
    inputs and incoming gradient against the plain versions; at depth 1,
    every parameter leaf, kernel path against plain path; every leaf at
    full depth within DEPTH_RATIO of the plain path's distance from an
-   f64-scan path (``grad_phase`` says why). Then the jamba block in f32
+   f64-scan path (``grad_phase`` says why; it also logs that ratio for
+   the plain path with its f32 sums reordered, as a witness). Then the jamba block in f32
    (36.0 GB): every Mamba layer's B4 and B6 and the attention layer's B2
    and backward in place, and every mixer leaf, kernel path against plain
    path (``jamba_grad_phase``).
@@ -82,8 +86,9 @@ Phase 2 also holds the scans' backward kernels against their plain
 versions at the training microbatches, with nonzero initial and final
 state gradients, at ragged S = 37 and 130, two runs bitwise equal: B7 at
 rwkv6-3b's (B=2, H=40, S=2048, hd=64, bf16 r/k/v in the model's layout,
-and f32), B6 at jamba's (B=1, S=1024, Di=16384, N=16, f32, and N=8) with
-B4's ``save_states`` checkpoints held first; tolerance atol = rtol = 1e-4
+and f32), B6 at jamba's
+(B=1, S=1024, Di=16384, N=16, f32, and N=8) with B4's ``save_states``
+checkpoints held first; tolerance atol = rtol = 1e-4
 for f32 outputs, 2e-2 for bf16 ones (the reference's backward and bf16
 tolerances).
 
@@ -125,6 +130,8 @@ DEPTH_RATIO = 4               # full-depth leaf: kernel path's distance from the
                               # f64-scan path over the plain f32 path's
 REF_CHUNK = 64                # the TPU scan's default chunk (B4-B7)
 TRAIN_BATCH_JAMBA, TRAIN_SEQ_JAMBA = 8, 1024  # the config's 8 microbatches of 1 row
+TRAIN_STEP_KERNELS = {"rwkv6_scan": "rwkv6_kernel",        # op: its kernels' name in a
+                      "rwkv6_scan_bwd": "rwkv6_bwd_kernel"}  # profile (B5, B7)
 
 
 def log(*a):
@@ -481,10 +488,12 @@ def rwkv_kernel_phase(dev):
     inputs, so they differ only in summation order."""
     import torch
 
-    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_fwd
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6_scan.kernel import fwd_plan, rwkv6_scan_fwd
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
     gen = torch.Generator(device=dev).manual_seed(4321)
+    n_sm = _build.sm_count(dev)
     bf16, f32 = torch.bfloat16, torch.float32
     tol = 1e-3
     H, hd = 40, 64
@@ -513,18 +522,24 @@ def rwkv_kernel_phase(dev):
     y_ref, sT_ref = rwkv6_scan_ref(*args)
     err = max(_check(f"rwkv6 bf16 prefill B={B} H={H} S={S} y", y, y_ref, tol),
               _check(f"rwkv6 bf16 prefill B={B} H={H} S={S} sT", sT, sT_ref, tol))
-    y8, s8 = rwkv6_scan_fwd(*args, _cols=8)
-    if not (torch.equal(y8, y) and torch.equal(s8, sT)):
-        raise AssertionError("rwkv6: 8 and 16 value columns per CTA differ")
-    log("  rwkv6 prefill: 8 == 16 value columns per CTA, bitwise")
+    cols = fwd_plan(B, H, hd, n_sm)
+    for other in (4, 16):  # two other column splits: the same bits
+        yo, so = rwkv6_scan_fwd(*args, _cols=other)
+        if not (torch.equal(yo, y) and torch.equal(so, sT)):
+            raise AssertionError(f"rwkv6: {other} and {cols} value columns per CTA differ")
+    log(f"  rwkv6 prefill: 4 == {cols} (the plan's, {B * H * hd // cols} CTAs) == 16 value "
+        f"columns per CTA, bitwise")
     row = dict(
         max_abs_err=err,
         ms=time_ms(lambda: rwkv6_scan_fwd(*args), 10),
+        device_ms=kernel_device_ms(lambda: rwkv6_scan_fwd(*args), 10, "rwkv6_kernel",
+                                   "rwkv6_scan"),
         plain_ms=time_ms(lambda: rwkv6_scan_ref(*args), 1, warmup=1),
         library_ms=None,  # no single PyTorch call computes the WKV recurrence
         **bound(nbytes(*args, y, sT), flops(B, S), "float32"),
-        shape=f"prefill B={B} H={H} S={S} hd={hd}, r/k/v bf16, w/u/s0 f32")
-    del args, y, sT, y_ref, sT_ref, y8, s8
+        shape=f"prefill B={B} H={H} S={S} hd={hd}, r/k/v bf16, w/u/s0 f32, {cols} value "
+              f"columns per CTA")
+    del args, y, sT, y_ref, sT_ref, yo, so
 
     # decode: 4 slots, one step, the state updated in place as the model
     # does; states rotated over 32 copies (84 MB) so each launch reads HBM
@@ -568,18 +583,24 @@ def rwkv_kernel_phase(dev):
     _check(f"rwkv6 bf16 save_states B={B} S={S} starts", starts, starts_ref, tol)
     train_bound = bound(nbytes(*args, y, sT) + ref_chunk_bytes(B, H, S, hd * hd),
                         flops(B, S), "float32")
+    cols = fwd_plan(B, H, hd, n_sm)
     row.update(
         train_ms=time_ms(lambda: rwkv6_scan_fwd(*args, save_states=True), 10),
+        train_device_ms=kernel_device_ms(lambda: rwkv6_scan_fwd(*args, save_states=True), 10,
+                                         "rwkv6_kernel", "rwkv6_scan"),
         train_bound_ms=train_bound["bound_ms"],
         train_bound_by=train_bound["bound_by"],
-        train_shape=f"B={B} H={H} S={S} hd={hd} save_states, r/k/v bf16")
+        train_shape=f"B={B} H={H} S={S} hd={hd} save_states, r/k/v bf16, {cols} value "
+                    f"columns per CTA")
     extra = nbytes(starts) - ref_chunk_bytes(B, H, S, hd * hd)
-    log(f"  rwkv6 with save_states (B={B}, S={S}): ms={row['train_ms']:.4f} "
-        f"bound_ms={row['train_bound_ms']:.4f} ({row['train_bound_by']}, "
+    log(f"  rwkv6 with save_states (B={B}, S={S}): ms={row['train_ms']:.4f} (events) "
+        f"device ms={row['train_device_ms']:.4f} (profiler), {cols} value "
+        f"columns per CTA; bound_ms={row['train_bound_ms']:.4f} ({row['train_bound_by']}, "
         f"checkpoints at the reference's {REF_CHUNK}-step chunk); the port's "
         f"8-step checkpoints write {extra / 1e6:.1f} MB more "
         f"({1e3 * extra / HBM_BYTES_PER_S:.4f} ms at the memory rate)")
-    log(f"  rwkv6 prefill ms={row['ms']:.4f} plain_ms={row['plain_ms']:.2f} "
+    log(f"  rwkv6 prefill ms={row['ms']:.4f} (events) device ms={row['device_ms']:.4f} "
+        f"(profiler) plain_ms={row['plain_ms']:.2f} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); decode device "
         f"ms={row['decode_ms']:.5f} (profiler) issue ms={row['decode_issue_ms']:.4f} "
         f"(events, back-to-back wrapper calls) plain_ms={row['decode_plain_ms']:.4f} "
@@ -596,29 +617,30 @@ def rwkv_bwd_kernel_phase(dev):
     ragged S = 37 and 130, and two runs bitwise equal."""
     import torch
 
-    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd, rwkv6_scan_fwd
+    from repro_torch.kernels.rwkv6_scan.kernel import (CLUSTER, bwd_threads, rwkv6_scan_bwd,
+                                                      rwkv6_scan_fwd)
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref
 
     gen = torch.Generator(device=dev).manual_seed(5432)
     H, hd = 40, 64
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
 
-    def case(B, S, dtype):
+    def case(B, S, dtype, heads=H):
         def seq(rand=torch.randn, scale=1.0, shift=0.0):
-            t = rand((B, S, H, hd), generator=gen, device=dev) * scale + shift
+            t = rand((B, S, heads, hd), generator=gen, device=dev) * scale + shift
             return t.transpose(1, 2)
 
         r, k, v = (seq().to(dtype) for _ in range(3))
         w = seq(torch.rand, 0.799, 0.2)
-        u = torch.randn((H, hd), generator=gen, device=dev)
-        s0 = 0.5 * torch.randn((B, H, hd, hd), generator=gen, device=dev)
+        u = torch.randn((heads, hd), generator=gen, device=dev)
+        s0 = 0.5 * torch.randn((B, heads, hd, hd), generator=gen, device=dev)
         dy = seq()
-        dsT = 0.5 * torch.randn((B, H, hd, hd), generator=gen, device=dev)
+        dsT = 0.5 * torch.randn((B, heads, hd, hd), generator=gen, device=dev)
         _, _, starts = rwkv6_scan_fwd(r, k, v, w, u, s0, save_states=True)
         return (r, k, v, w, dy, u, starts, dsT)
 
-    def check(label, args):
-        got = rwkv6_scan_bwd(*args)
+    def check(label, args, **kw):
+        got = rwkv6_scan_bwd(*args, **kw)
         ref = rwkv6_scan_bwd_ref(*args)
         return got, max(_check(f"{label} {n}", a, b, BWD_TOL[str(a.dtype)[6:]])
                         for n, a, b in zip(names, got, ref))
@@ -631,6 +653,8 @@ def rwkv_bwd_kernel_phase(dev):
 
     log("kernel phase: rwkv6_scan_bwd (B7)")
     B, S = 2, TRAIN_SEQ
+    log(f"  rwkv6 bwd launch: {CLUSTER} CTAs per (b, h) in a thread-block cluster, "
+        f"{B * H * CLUSTER} CTAs of {bwd_threads(hd)} threads at B={B} H={H} hd={hd}")
     args = case(B, S, torch.bfloat16)
     got, err = check(f"rwkv6 bwd bf16 B={B} H={H} S={S}", args)
     r, k, v, w, dy, u, starts, dsT = args
@@ -642,6 +666,8 @@ def rwkv_bwd_kernel_phase(dev):
     row = dict(
         max_abs_err=err,
         ms=time_ms(lambda: rwkv6_scan_bwd(*args), 10),
+        device_ms=kernel_device_ms(lambda: rwkv6_scan_bwd(*args), 10, "rwkv6_bwd_kernel",
+                                   "rwkv6_scan_bwd"),
         plain_ms=time_ms(lambda: rwkv6_scan_bwd_ref(*args), 1, warmup=1),
         library_ms=None,  # no single PyTorch call computes the WKV backward
         # the checkpoints read and the du partials written are counted at
@@ -649,9 +675,10 @@ def rwkv_bwd_kernel_phase(dev):
         **bound(nbytes(r, k, v, w, dy, u, dsT, dr, dk, dv, dw, ds0)
                 + ref_chunk_bytes(B, H, S, hd * hd + hd), flops(B, S), "float32"),
         shape=f"B={B} H={H} S={S} hd={hd}, r/k/v/dr/dk/dv bf16, w/dy/u/states f32, "
-              f"checkpoints every 8 steps")
+              f"checkpoints every 8 steps, clusters of {CLUSTER} CTAs")
     extra = nbytes(starts, du) - ref_chunk_bytes(B, H, S, hd * hd + hd)
-    log(f"  rwkv6 bwd ms={row['ms']:.4f} plain_ms={row['plain_ms']:.2f} "
+    log(f"  rwkv6 bwd ms={row['ms']:.4f} (events) device ms={row['device_ms']:.4f} (profiler) "
+        f"plain_ms={row['plain_ms']:.2f} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}); library: none; the "
         f"port's 8-step checkpoints and du partials read and write "
         f"{extra / 1e6:.1f} MB more ({1e3 * extra / HBM_BYTES_PER_S:.4f} ms)")
@@ -659,6 +686,16 @@ def rwkv_bwd_kernel_phase(dev):
     for dtype, S in ((torch.float32, 130), (torch.float32, 37), (torch.bfloat16, 37)):
         _, e = check(f"rwkv6 bwd {str(dtype)[6:]} B=2 S={S}", case(2, S, dtype))
         row["max_abs_err"] = max(row["max_abs_err"], e)
+    # its latency: 10 heads of one sequence put one CTA on each of 40 SMs,
+    # so nothing on an SM hides one CTA's stalls
+    alone = case(1, TRAIN_SEQ, torch.bfloat16, heads=10)
+    row["event_alone_ms"] = time_ms(lambda: rwkv6_scan_bwd(*alone), 10)
+    row["device_alone_ms"] = kernel_device_ms(lambda: rwkv6_scan_bwd(*alone), 10,
+                                              "rwkv6_bwd_kernel", "rwkv6_scan_bwd")
+    log(f"  rwkv6 bwd with one CTA per SM (B=1, H=10, S={TRAIN_SEQ}, {10 * CLUSTER} CTAs): "
+        f"ms={row['event_alone_ms']:.4f} (events) device ms={row['device_alone_ms']:.4f} "
+        f"(profiler)")
+    del alone
     torch.cuda.empty_cache()
     return {"rwkv6_scan_bwd": row}
 
@@ -897,11 +934,12 @@ def library_device_ms(fn, n):
                if e.device_type == DeviceType.CUDA) / n / 1e3
 
 
-def decode_profile(fn, n=5):
+def decode_profile(fn, n=5, named=()):
     """The device's busy share of ``n`` calls of ``fn``: the CUDA kernels'
     time from torch.profiler over the wall time of ``n`` unprofiled calls
-    (the profiler slows the host, so it does not time the wall), and the
-    kernels that take the most. None where the profiler records no device
+    (the profiler slows the host, so it does not time the wall), the
+    kernels that take the most, and the ms per call of the kernels whose
+    names hold each of ``named``. None where the profiler records no device
     time."""
     import torch
     from torch.autograd import DeviceType
@@ -927,7 +965,9 @@ def decode_profile(fn, n=5):
     return dict(busy_share=device_us / wall_us,
                 wall_ms_per_step=wall_us / n / 1e3,
                 device_ms_per_step=device_us / n / 1e3,
-                top_kernels_ms={k[:72]: round(t / n / 1e3, 4) for k, t in top})
+                top_kernels_ms={k[:72]: round(t / n / 1e3, 4) for k, t in top},
+                named_ms={name: sum(t for k, t in kernels if name in k) / n / 1e3
+                          for name in named})
 
 
 # --------------------------------------------------------------------------
@@ -1281,9 +1321,14 @@ def train_phase(dev, seed, cfg, batch_rows, seq, preempt_at):
         plain_calls=0)
     log(f"  {json.dumps(summary)}")
     batch = data.batch(TRAIN_STEPS)
-    prof = decode_profile(lambda: trainer.step_fn(state, batch), n=1)
+    prof = decode_profile(lambda: trainer.step_fn(state, batch), n=1,
+                          named=TRAIN_STEP_KERNELS.values())
     log(f"  train step profile: "
         f"{json.dumps(prof) if prof else 'not measured (no device time recorded)'}")
+    for op, kernel in TRAIN_STEP_KERNELS.items():
+        if prof and counts.get(op):
+            log(f"  train step {op} ms={prof['named_ms'][kernel]:.4f} ({cfg.name}, profiler "
+                f"device time of the {kernel} launches in one step)")
     summary["profile"] = prof
     del state, trainer, opt
     torch.cuda.empty_cache()
@@ -1326,11 +1371,18 @@ def grad_phase(dev, seed):
         differ by 1e-2 or more, so 2e-4 between the kernel and plain paths
         cannot hold. Each leaf of the kernel path is held instead to within
         DEPTH_RATIO times the plain f32 path's own distance from that path
-        (or 2e-4, where that is larger). The two f32 distances are two draws
-        of the same amplified rounding, so their ratio spreads from leaf to
-        leaf (up to ~3 at this seed); a fault that shows only in depth, such
-        as a gradient wired to the wrong layer or a wrong recompute, moves a
-        leaf by O(1) of its max, far beyond that."""
+        (or 2e-4, where that is larger). The kernels' f32 instances carry
+        their states and sums in float64 and round only what they store, so
+        the kernel path lies near the f64-scan path and (c) reads far below
+        its limit; a fault that shows only in depth, such as a gradient wired
+        to the wrong layer or a wrong recompute, moves a leaf by O(1) of its
+        max, far beyond it. The bf16 instances, the model's path, sum in f32:
+        the kernel checks hold them to their plain versions. Two f32 paths
+        are two draws of the same amplified rounding, and their distances'
+        ratio spreads from leaf to leaf past DEPTH_RATIO: the phase logs, as a
+        witness, the same ratio for the plain path with its scan's key rows
+        and value columns permuted (reversed, and shuffled from the seed),
+        which changes only the order of the f32 sums."""
     import torch
 
     import repro_torch.models.rwkv as R
@@ -1416,11 +1468,23 @@ def grad_phase(dev, seed):
     _, g_64 = grads(plain, params, scan_ref=scan64)
     gap, floor, off = (_leaf_gaps(paths, a, b)
                        for a, b in ((g_k, g_p), (g_p, g_64), (g_k, g_64)))
-    del g_k, g_p, g_64, params
-    torch.cuda.empty_cache()
+    del g_k
     plain_off = {leaf: g for g, leaf in floor}
-    ratio = sorted(((g / max(DEPTH_RATIO * plain_off[leaf], LOGIT_RTOL), g,
-                     plain_off[leaf], leaf) for g, leaf in off), reverse=True)
+
+    def ratios(gaps):
+        return sorted(((g / max(DEPTH_RATIO * plain_off[leaf], LOGIT_RTOL), g,
+                        plain_off[leaf], leaf) for g, leaf in gaps), reverse=True)
+
+    ratio = ratios(off)
+    witness = {}
+    for label, order in (("reversed", lambda n: torch.arange(n - 1, -1, -1)),
+                         ("shuffled", lambda n: torch.randperm(
+                             n, generator=torch.Generator().manual_seed(seed)))):
+        _, g_q = grads(plain, params, scan_ref=_permuted_scan(order))
+        witness[label] = ratios(_leaf_gaps(paths, g_q, g_64))
+        del g_q
+    del g_p, g_64, params
+    torch.cuda.empty_cache()
 
     def over(gaps):
         return f"{sum(g > LOGIT_RTOL for g, _ in gaps)} of {len(gaps)} leaves over {LOGIT_RTOL}"
@@ -1432,6 +1496,12 @@ def grad_phase(dev, seed):
         f"max({DEPTH_RATIO} x plain's, {LOGIT_RTOL}), worst {ratio[0][0]:.3f} ({ratio[0][3]}: "
         f"{ratio[0][1]:.3e} vs {ratio[0][2]:.3e}), {sum(q > 1 for q, *_ in ratio)} "
         f"of {len(ratio)} leaves over 1")
+    for label, q in witness.items():
+        log(f"  (c) witness, the plain path with its scan's rows and columns {label} (f32 "
+            f"sums in another order) from the f64-scan path: its distance over "
+            f"max({DEPTH_RATIO} x plain's, {LOGIT_RTOL}), worst {q[0][0]:.3f} ({q[0][3]}: "
+            f"{q[0][1]:.3e} vs {q[0][2]:.3e}), {sum(x > 1 for x, *_ in q)} of {len(q)} "
+            f"leaves over 1")
 
     # (b) every leaf at depth 1
     cfg1 = cfg.replace(num_layers=1)
@@ -1455,6 +1525,24 @@ def grad_phase(dev, seed):
                              f"from the f64-scan path than {DEPTH_RATIO} x the plain path: "
                              f"{ratio[:5]}")
     return worst, ratio[0][0]
+
+
+def _permuted_scan(order):
+    """The plain RWKV-6 scan with the key rows and the value columns of its
+    state permuted by ``order(hd)`` and put back after: the same function,
+    its f32 sums over rows and columns taken in another order."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    def scan(r, k, v, w, u, s0, **kw):
+        p = order(r.shape[-1]).to(r.device)
+        back = torch.argsort(p)
+        y, sT = rwkv6_scan_ref(r[..., p], k[..., p], v[..., p], w[..., p], u[:, p],
+                               s0[:, :, p][..., p])
+        return y[..., back], sT[:, :, back][..., back]
+
+    return scan
 
 
 def jamba_grad_phase(dev, seed, study=False):
@@ -1804,7 +1892,7 @@ def main(argv=None):
             "shape": r["shape"],
             "launches_by_path": {path: n[name] for path, n in by_path.items()},
             **{k: v for k, v in r.items()
-               if k.startswith(("decode_", "train_", "jamba_", "event_"))}})
+               if k.startswith(("decode_", "train_", "jamba_", "event_", "device_"))}})
     log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; f32 gradient "
         f"check passed: rwkv6-3b worst {worst_grad:.3e} <= {LOGIT_RTOL}, full depth "
         f"{depth_ratio:.3f} <= 1 of its limit; jamba block in place "

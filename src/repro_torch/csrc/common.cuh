@@ -8,6 +8,7 @@
 // can raise on a refused launch.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,6 +101,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Sum per-lane values over the lanes that differ in lane bits O, O / 2, ...,
+// LO (powers of two). While more than one value is live, each round hands
+// half of them to the partner lane and keeps the other half, so L values
+// cost L - 1 shuffles over log2(L) bits, not L log2(L); after that, plain
+// butterflies. Values v[0 .. LIVE) are live on entry; on return a lane holds
+// the sums of v[m'], m' = the index its halving bits select. Each sum's
+// order is fixed by the lane bits alone.
+template <int O, int LO, int LIVE, int V, typename F>
+__device__ __forceinline__ void lane_sum(F (&v)[V], int lane) {
+  if constexpr (O >= LO) {
+    if constexpr (LIVE > 1) {
+      constexpr int HALF = LIVE / 2;
+      const bool hi = (lane & O) != 0;
+#pragma unroll
+      for (int m = 0; m < HALF; ++m) {
+        const F send = hi ? v[m] : v[m + HALF];
+        const F keep = hi ? v[m + HALF] : v[m];
+        v[m] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      lane_sum<O / 2, LO, HALF, V, F>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      lane_sum<O / 2, LO, 1, V, F>(v, lane);
+    }
+  }
+}
+
 // Each library exports the CUDA error text so the wrapper can report it.
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -112,4 +140,131 @@ static cudaError_t set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and TMA (flash attention, the RWKV-6 scans)
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+// Wait for the completion of the barrier's phase of parity ``parity``. A
+// wait that outlasts ~2^35 cycles (many seconds) is a fault of the kernel:
+// trap rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  long long start = 0;
+  for (int n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if ((n & 1023) == 1023) {
+      const long long now = clock64();
+      if (start == 0) {
+        start = now;
+      } else if (now - start > (1ll << 35)) {
+        __trap();
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the library
+// needs no -lcuda
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Make this thread's shared-memory writes visible to a following TMA store.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
+      : "memory");
+}
+// Wait until this thread's TMA stores have read their shared memory.
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// A 4-d tensor map over a strided view: dims innermost first, `strides` in
+// bytes for dims 1 .. 3, boxes `box`, zero fill past the ends, no swizzle
+// unless asked. A dim of size 1 is never stepped over, so its stride is
+// replaced by the extent of the dims inside it (TMA wants strides of whole
+// 16 bytes). The wrappers have checked TMA's rules for the rest: a 16-byte
+// aligned base and strides of whole 16 bytes.
+static cudaError_t tensor_map_4d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                                 const void* ptr, const int64_t (&dims)[4],
+                                 const int64_t (&strides)[3], const int (&box)[4],
+                                 CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t d[4], s[3];
+  cuuint32_t bx[4], unit[4];
+  int64_t span = static_cast<int64_t>(elem_bytes) * dims[0];
+  for (int i = 0; i < 4; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+    unit[i] = 1;
+    if (i > 0) {
+      s[i - 1] = static_cast<cuuint64_t>(dims[i] == 1 ? span : strides[i - 1]);
+      span = static_cast<int64_t>(s[i - 1]) * dims[i];
+    }
+  }
+  const CUresult r = encode(map, type, 4, const_cast<void*>(ptr), d, s, bx, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -48,8 +48,6 @@
 // f32 (the parity checks and gradients): flash_kernel keeps the CUDA-core
 // design, both products f32 FMAs from shared memory, since TF32 would miss
 // f32's atol of 2e-5.
-#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled is fetched at run time
-
 #include "common.cuh"
 
 struct FlashParams {
@@ -295,50 +293,6 @@ template <int HD> struct WgTile {
       1024 + Q_BYTES + STAGES * 2 * KV_BYTES + sizeof(uint64_t) * (1 + 3 * STAGES);
 };
 
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-// Wait for the completion of the barrier's phase of parity ``parity``. A
-// wait that outlasts ~2^35 cycles (many seconds) is a fault of the kernel:
-// trap rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  long long start = 0;
-  for (int n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if ((n & 1023) == 1023) {
-      const long long now = clock64();
-      if (start == 0) {
-        start = now;
-      } else if (now - start > (1ll << 35)) {
-        __trap();
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -712,52 +666,16 @@ __global__ void __launch_bounds__(WgTile<HD>::NTHR, 1)
 // ---------------------------------------------------------------------------
 // host side
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the library
-// needs no -lcuda
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A 4-d tensor map (hd, S, heads, B) over a bf16 view with element strides
 // (s_s, s_h, s_b); boxes of (pw, rows, 1, 1), swizzled as wgmma reads them,
-// zero-filled past S. The wrapper has checked TMA's rules: a 16-byte aligned
-// base and strides of whole 16 bytes.
+// zero-filled past S.
 static cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads,
                               int B, int64_t s_s, int64_t s_h, int64_t s_b, int rows, int pw) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_s) * 2,
-                                 static_cast<cuuint64_t>(s_h) * 2,
-                                 static_cast<cuuint64_t>(s_b) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(pw), static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            pw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  const int64_t dims[4] = {hd, S, heads, B};
+  const int64_t strides[3] = {s_s * 2, s_h * 2, s_b * 2};
+  const int box[4] = {pw, rows, 1, 1};
+  return tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, dims, strides, box,
+                       pw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 template <int HD>

@@ -295,29 +295,6 @@ __host__ __device__ constexpr size_t bwd_smem_floats() {
          + SSM_WARPS * SSM_CK * 2 * N;                   // warp totals [warp][step][2N]
 }
 
-// Sum CNT values over the lanes of a warp by recursive halving: at offset O
-// a lane keeps one half of its values and adds its partner's copy of that
-// half; once one value is left the remaining offsets add it across lanes.
-// Lane l ends with the warp total of value l >> (5 - log2 CNT) in v[0]. The
-// adds run in a fixed order, so the sums are bitwise repeatable.
-template <int CNT, int O, int V>
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[V], int lane) {
-  if constexpr (CNT >= 2) {
-    constexpr int H = CNT / 2;
-    const bool upper = (lane & O) != 0;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float send = upper ? v[i] : v[i + H];
-      const float keep = upper ? v[i + H] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-    }
-    if constexpr (O > 1) warp_reduce_scatter<H, O / 2, V>(v, lane);
-  } else {
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
-    if constexpr (O > 1) warp_reduce_scatter<1, O / 2, V>(v, lane);
-  }
-}
-
 template <int N>
 __global__ void __launch_bounds__(SSM_THREADS) ssm_scan_bwd_kernel(const SsmBwdParams p) {
   static_assert(N % 4 == 0, "state rows move as float4");
@@ -413,7 +390,7 @@ __global__ void __launch_bounds__(SSM_THREADS) ssm_scan_bwd_kernel(const SsmBwdP
           v[N + j] = dyt * ht;
           g[j] = da * gj;
         }
-        warp_reduce_scatter<V, 16, V>(v, lane);
+        lane_sum<16, 1, V>(v, lane);  // lane l: value l >> SHIFT, summed
         if ((lane & ((1 << SHIFT) - 1)) == 0)
           red[(warp * SSM_CK + i) * V + (lane >> SHIFT)] = v[0];
         if (live) {

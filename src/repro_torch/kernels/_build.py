@@ -19,6 +19,7 @@ port on machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -128,6 +129,18 @@ def check_rows(t, name: str) -> None:
     if not rows_ok(t):
         raise ValueError(f"{name}: strides {t.stride()} / base not aligned to "
                          f"16-byte rows (need a unit last stride)")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the launch plans' input)."""
+    return _sm_count(device.index if device.index is not None else 0)
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

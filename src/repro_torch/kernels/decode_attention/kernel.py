@@ -14,7 +14,6 @@ count alone, never from the layout.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -62,11 +61,6 @@ def split_plan(B, KV, L, n_sm):
     return -(-L // split_len), split_len
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _entry():
     lib = _build.lib("decode_attention")
     fn = lib.decode_attention_fwd
@@ -103,7 +97,7 @@ def plan(prm: DecodeParams, n_sm: int) -> int:
 def _launch(prm: DecodeParams, device, name: str):
     """Plan the split, give the routine its f32 partials, launch it (the
     split pass and the combine) and count one launch of ``name``."""
-    rows = plan(prm, _sm_count(device.index or 0))
+    rows = plan(prm, _build.sm_count(device))
     part = torch.empty(rows * (prm.hd + 2), dtype=torch.float32, device=device)
     prm.part, prm.part_m, prm.part_l = (
         part.data_ptr(), part.data_ptr() + 4 * rows * prm.hd,

@@ -7,7 +7,14 @@ model passes transposed views of its (B, S, H, hd) projections without a
 copy, and writes y into a (B, H, S, hd) view of a (B, S, H, hd) buffer,
 which the model reshapes back for free. ``state_out`` may be ``s0`` itself:
 the final state then overwrites the initial one in place. The backward
-writes dr, dk, dv, dw the same way, into (B, S, H, hd) storage.
+writes dr, dk, dv, dw the same way, into (B, S, H, hd) storage. Both
+kernels load rows through TMA tensor maps, which need 16-byte aligned
+rows: a view that breaks that is refused, never copied.
+
+The forward's value columns per CTA come from a launch plan, ``fwd_plan``,
+from the shapes and the SM count alone; its result does not depend on the
+split at all. The backward splits each (b, h) over a thread-block cluster
+of ``CLUSTER`` CTAs, always, and is bitwise repeatable.
 """
 
 from __future__ import annotations
@@ -25,6 +32,11 @@ _I32 = ctypes.c_int32
 _P = ctypes.c_void_p
 
 HEAD_DIMS = (32, 64)  # the kernel is instantiated for these
+KEY_ROWS = 4          # key rows a forward thread holds (KR_SCAN in the source)
+FWD_MAX_THREADS = 512
+FWD_CTAS_PER_SM = 2   # the forward's split aims at this many CTAs on each SM
+CLUSTER = 4           # the backward's CTAs per (b, h), a thread-block cluster (BWD_NC)
+BWD_COLS_PER_THREAD = 8  # value columns a backward thread holds (BWD_JM in the source)
 
 
 class Rwkv6Params(ctypes.Structure):
@@ -60,6 +72,37 @@ class Rwkv6BwdParams(ctypes.Structure):
     ]
 
 
+def check_cols(hd, cols):
+    """Refuse a forward split the kernel does not take: ``cols`` value
+    columns per CTA must be a multiple of 4 dividing ``hd``, with at most
+    ``FWD_MAX_THREADS`` threads (hd / 4 per column)."""
+    if (cols < 4 or cols % 4 or hd % cols
+            or hd // KEY_ROWS * cols > FWD_MAX_THREADS):
+        raise ValueError(f"cols={cols}: need a multiple of 4 dividing hd={hd}, "
+                         f"at most {FWD_MAX_THREADS} threads")
+
+
+def fwd_plan(B, H, hd, n_sm):
+    """Value columns per CTA of a forward launch: 16 when that still gives
+    every one of ``n_sm`` SMs ``FWD_CTAS_PER_SM`` CTAs (a step's work is a
+    sequential chain, so the card fills by CTAs), else 8. It reads no data
+    and no layout. Other splits are for tests (``_cols``)."""
+    cols = 16 if B * H * (hd // 16) >= FWD_CTAS_PER_SM * n_sm else 8
+    check_cols(hd, cols)
+    return cols
+
+
+def bwd_threads(hd):
+    """Threads of one backward CTA: every key row, ``BWD_COLS_PER_THREAD``
+    of the CTA's hd / ``CLUSTER`` value columns a thread."""
+    return hd * (hd // CLUSTER // BWD_COLS_PER_THREAD)
+
+
+def _aligned(t, name):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: base not 16-byte aligned")
+
+
 def _entry(name, params):
     lib = _build.lib("rwkv6_scan")
     fn = getattr(lib, name)
@@ -91,6 +134,7 @@ def _check_inputs(what, r, k, v, w, u, state, others):
         raise ValueError(f"u shape {tuple(u.shape)}; need ({H},{hd}), unit last stride")
     if state.shape != (B, H, hd, hd) or not state.is_contiguous():
         raise ValueError(f"s0/dsT must be a contiguous ({B},{H},{hd},{hd}) tensor")
+    _aligned(state, "s0/dsT")
     for t, name in ((r, "r"), (k, "k"), (v, "v"), (w, "w")):
         _build.check_rows(t, name)
 
@@ -102,15 +146,15 @@ def _bshd(like, dtype):
 
 
 def rwkv6_scan_fwd(r, k, v, w, u, s0, *, state_out=None, save_states=False,
-                   _cols=16):
+                   _cols=None):
     """r,k,v: (B,H,S,hd) CUDA tensors of one dtype (f32 or bf16); w: (B,H,S,hd)
     f32; u: (H,hd) f32; s0: (B,H,hd,hd) f32 contiguous. Any S >= 1; views
     with a unit last stride. ``state_out``: a contiguous (B,H,hd,hd) f32
     tensor for the final state (may be ``s0``); a new one by default.
     Returns (y (B,H,S,hd) f32, sT), plus with ``save_states`` the states
     before every ``CHECKPOINT``-th step, (B,H,nc,hd,hd) f32. ``_cols``
-    (value columns per CTA) is a test hook: the result must not depend on
-    it."""
+    (value columns per CTA, ``fwd_plan``'s by default) is a test hook: the
+    result must not depend on it."""
     B, H, S, hd = r.shape
     _check_inputs("rwkv6_scan_fwd", r, k, v, w, u, s0,
                   [] if state_out is None else [state_out])
@@ -119,8 +163,9 @@ def rwkv6_scan_fwd(r, k, v, w, u, s0, *, state_out=None, save_states=False,
     elif (state_out.shape != s0.shape or state_out.dtype != torch.float32
           or not state_out.is_contiguous()):
         raise ValueError("state_out must be a contiguous f32 tensor shaped like s0")
-    if _cols < 4 or _cols % 4 or hd % _cols:
-        raise ValueError(f"_cols={_cols}: need a multiple of 4 dividing hd={hd}")
+    _aligned(state_out, "state_out")
+    cols = fwd_plan(B, H, hd, _build.sm_count(r.device)) if _cols is None else _cols
+    check_cols(hd, cols)
     y = _bshd(r, torch.float32)
     starts = (torch.empty((B, H, n_chunks(S), hd, hd), dtype=torch.float32,
                           device=r.device) if save_states else None)
@@ -130,7 +175,7 @@ def rwkv6_scan_fwd(r, k, v, w, u, s0, *, state_out=None, save_states=False,
         None if starts is None else starts.data_ptr(),
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
         *y.stride()[:3], u.stride(0),
-        B, H, S, hd, _cols, _build.dtype_code(r))
+        B, H, S, hd, cols, _build.dtype_code(r))
     lib, fn = _entry("rwkv6_scan_fwd", Rwkv6Params)
     _build.check(lib, fn(ctypes.byref(prm), _build.stream_ptr(r.device)),
                  "rwkv6_scan_fwd")
@@ -154,6 +199,7 @@ def rwkv6_scan_bwd(r, k, v, w, dy, u, s_starts, dsT):
     if s_starts.shape != (B, H, nc, hd, hd) or not s_starts.is_contiguous():
         raise ValueError(f"s_starts must be a contiguous ({B},{H},{nc},{hd},{hd}) "
                          f"tensor")
+    _aligned(s_starts, "s_starts")
     dr, dk, dv = (_bshd(r, r.dtype) for _ in range(3))
     dw = _bshd(r, torch.float32)
     du = torch.empty((B, H, nc, hd), dtype=torch.float32, device=r.device)

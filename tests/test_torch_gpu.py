@@ -434,13 +434,18 @@ def test_rwkv6_kernel_in_place_state_equals_out_of_place(cuda, S):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_rwkv6_kernel_bitwise_independent_of_column_split(cuda, dtype):
     """The reduction over k has a fixed order per column, so the value
-    columns per CTA (the wrapper's ``_cols`` hook) do not change a bit."""
+    columns per CTA (the wrapper's ``_cols`` hook, ``fwd_plan``'s by
+    default) do not change a bit of y, sT or the saved states."""
     gen = torch.Generator(device=cuda).manual_seed(10)
     args = _wkv_case(gen, cuda, dtype, 2, 3, 77, 64)
-    y16, s16 = rwkv6_scan_fwd(*args)
-    for cols in (4, 8, 32, 64):
+    y0, s0_, st0 = rwkv6_scan_fwd(*args, save_states=True)
+    y1, s1 = rwkv6_scan_fwd(*args)
+    assert torch.equal(y1, y0) and torch.equal(s1, s0_)
+    for cols in (4, 8, 16, 32):
+        y, s, st = rwkv6_scan_fwd(*args, save_states=True, _cols=cols)
+        assert torch.equal(y, y0) and torch.equal(s, s0_) and torch.equal(st, st0), cols
         y, s = rwkv6_scan_fwd(*args, _cols=cols)
-        assert torch.equal(y, y16) and torch.equal(s, s16), cols
+        assert torch.equal(y, y0) and torch.equal(s, s0_), cols
 
 
 def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda):
@@ -456,6 +461,34 @@ def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         rwkv6_scan_fwd(q, q, q, q, torch.zeros(2, 48, device=cuda),
                        torch.zeros(1, 2, 48, 48, device=cuda))
+
+
+def test_rwkv6_kernels_refuse_views_the_loads_cannot_take(cuda):
+    """Rows are loaded by TMA, which needs 16-byte aligned row starts: a
+    view whose base or row stride is not 16-byte aligned, or whose state is
+    not, is refused (never copied or sent down the plain path)."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    r, k, v, w, u, s0 = _wkv_case(gen, cuda, torch.bfloat16, 1, 2, 9, 64)
+    odd = torch.zeros(1 * 2 * 9 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = odd[1:1 + r.numel()].view(r.shape)          # base off by 2 bytes
+    padded = torch.zeros(1, 2, 9, 68, dtype=torch.bfloat16, device=cuda)[..., :64]
+    for bad in (shifted, padded):                           # row stride 136 bytes
+        with pytest.raises(ValueError, match="16-byte"):
+            rwkv6_scan_fwd(bad, k, v, w, u, s0)
+        with pytest.raises(ValueError, match="16-byte"):
+            rwkv6_scan_fwd(r, k, bad, w, u, s0, save_states=True)
+    s_odd = torch.zeros(s0.numel() + 4, device=cuda)[1:1 + s0.numel()].view(s0.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_scan_fwd(r, k, v, w, u, s_odd)
+    _, _, starts = rwkv6_scan_fwd(r, k, v, w, u, s0, save_states=True)
+    dy = torch.zeros(w.shape, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_scan_bwd(shifted, k, v, w, dy, u, starts, s0)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_scan_bwd(r, k, v, w, torch.zeros(1, 2, 9, 65, device=cuda)[..., :64],
+                       u, starts, s0)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_scan_bwd(r, k, v, w, dy, u, starts, s_odd)
 
 
 def test_rwkv_decoder_kernel_path_matches_plain_path(cuda):
@@ -533,7 +566,8 @@ def test_rwkv6_bwd_kernel_matches_plain(cuda, dtype, hd, S):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_rwkv6_bwd_kernel_model_layout_and_bitwise_repeatable(cuda, dtype):
     """Strided (B,H,S,hd) views of (B,S,H,hd) storage in, the same layout
-    out; two runs agree bit for bit (one CTA per (b, h), no atomics)."""
+    out; two runs agree bit for bit (the cluster's partials are summed in
+    rank order through shared memory, no float atomics)."""
     gen = torch.Generator(device=cuda).manual_seed(21)
     (r, k, v, w, u, s0), dy, dsT = _bwd_case(gen, cuda, dtype, 2, 40, 100, 64,
                                              model_layout=True)
@@ -545,6 +579,27 @@ def test_rwkv6_bwd_kernel_model_layout_and_bitwise_repeatable(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     ref = rwkv6_scan_bwd_ref(*(t.contiguous() for t in (r, k, v, w, dy, u)),
                              starts, dsT)
+    _assert_bwd_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S", [1, 37, 130])
+def test_rwkv6_bwd_kernel_matches_plain_on_model_layout_views(cuda, S, hd, dtype):
+    """B7, each head split over a cluster of 4 CTAs, on (B,H,S,hd) views of
+    (B,S,H,hd) storage against the plain backward, nonzero s0 and dsT,
+    ragged and one-step chunks, and no plain call."""
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    (r, k, v, w, u, s0), dy, dsT = _bwd_case(gen, cuda, dtype, 2, 3, S, hd,
+                                             model_layout=True)
+    _, _, starts = rwkv6_scan_fwd(r, k, v, w, u, s0, save_states=True)
+    reset_counts()
+    got = rwkv6_scan_bwd(r, k, v, w, dy, u, starts, dsT)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rwkv6_scan_bwd"] == 1 and PLAIN_CALLS["rwkv6_scan_bwd"] == 0
+    for t in got[:4]:
+        assert t.transpose(1, 2).is_contiguous()
+    ref = rwkv6_scan_bwd_ref(*(t.contiguous() for t in (r, k, v, w, dy, u)), starts, dsT)
     _assert_bwd_close(got, ref, dtype)
 
 

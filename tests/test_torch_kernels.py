@@ -43,6 +43,7 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     FlashParams, _tma_strides, flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import kernel as rwkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.kernel import (  # noqa: E402
     Rwkv6BwdParams, Rwkv6Params, rwkv6_scan_bwd, rwkv6_scan_fwd)
 from repro_torch.kernels.rwkv6_scan.ref import CHECKPOINT  # noqa: E402
@@ -423,6 +424,58 @@ def test_rwkv_checkpoint_interval_matches_cuda_source():
     shapes use ``CHECKPOINT``."""
     text = (SRC / "repro_torch" / "csrc" / "rwkv6_scan.cu").read_text()
     assert int(re.search(r"constexpr int CK = (\d+);", text).group(1)) == CHECKPOINT
+
+
+# ------------------------------------------- the RWKV-6 launch plan (B5) and cluster (B7)
+
+# (B, H, hd) of the main path: rwkv6-3b's prefill (one sequence), training
+# microbatch and 4-slot decode; the small test shapes; a large batch
+RWKV_SHAPES = [(1, 40, 64), (2, 40, 64), (4, 40, 64), (2, 3, 64), (3, 5, 32), (16, 40, 64)]
+
+
+@pytest.mark.parametrize("B,H,hd", RWKV_SHAPES, ids=lambda x: str(x))
+@pytest.mark.parametrize("n_sm", [1, 20, 132])
+def test_rwkv_fwd_plan_depends_on_shapes_and_sm_count_only(B, H, hd, n_sm):
+    """The forward's plan reads nothing but the shapes and the SM count: the
+    same answer on every call, a split the kernel takes, and 16 value
+    columns per CTA exactly when that still gives every SM
+    ``FWD_CTAS_PER_SM`` CTAs, else 8."""
+    cols = rwkv_kernel.fwd_plan(B, H, hd, n_sm)
+    assert cols == rwkv_kernel.fwd_plan(B, H, hd, n_sm)
+    rwkv_kernel.check_cols(hd, cols)
+    wide = B * H * (hd // 16) >= rwkv_kernel.FWD_CTAS_PER_SM * n_sm
+    assert cols == (16 if wide else 8)
+    assert rwkv_kernel.bwd_threads(hd) % 32 == 0
+
+
+def test_rwkv_plans_at_the_main_path_shapes():
+    """rwkv6-3b on 132 SMs: the 4500-token prefill splits each head's 64
+    value columns 8 per CTA (320 CTAs), training's B=2 and decode's B=4
+    16 per CTA (320 and 640 CTAs); B7 at the training microbatch runs
+    clusters of 4 (320 CTAs of 128 threads, three to an SM)."""
+    assert rwkv_kernel.fwd_plan(1, 40, 64, H100_SMS) == 8
+    assert rwkv_kernel.fwd_plan(2, 40, 64, H100_SMS) == 16
+    assert rwkv_kernel.fwd_plan(4, 40, 64, H100_SMS) == 16
+    assert rwkv_kernel.CLUSTER == 4 and rwkv_kernel.bwd_threads(64) == 128
+
+
+@pytest.mark.parametrize("hd,cols", [(64, 6), (64, 2), (64, 0), (64, 128), (32, 64), (64, 12)])
+def test_rwkv_fwd_refuses_bad_column_splits(hd, cols):
+    with pytest.raises(ValueError, match="cols"):
+        rwkv_kernel.check_cols(hd, cols)
+
+
+def test_rwkv_plan_constants_match_cuda_source():
+    """The wrapper's thread counts follow the kernels': KR_SCAN key rows a
+    forward thread, at most FWD_MAX_THREADS threads, BWD_NC CTAs a cluster
+    and BWD_JM value columns a backward thread."""
+    text = (SRC / "repro_torch" / "csrc" / "rwkv6_scan.cu").read_text()
+    const = {name: int(re.search(r"constexpr int %s = (\d+);" % name, text).group(1))
+             for name in ("KR_SCAN", "FWD_MAX_THREADS", "BWD_NC", "BWD_JM")}
+    assert const == {"KR_SCAN": rwkv_kernel.KEY_ROWS,
+                     "FWD_MAX_THREADS": rwkv_kernel.FWD_MAX_THREADS,
+                     "BWD_NC": rwkv_kernel.CLUSTER,
+                     "BWD_JM": rwkv_kernel.BWD_COLS_PER_THREAD}
 
 
 def test_ssm_checkpoint_interval_and_cta_width_match_cuda_source():
