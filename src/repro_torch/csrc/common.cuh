@@ -143,6 +143,28 @@ static cudaError_t set_smem(K kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
+// cp.async (decode attention, the Mamba scans): global -> shared copies
+// that bypass registers; `pred` false writes zeros and reads nothing. A
+// thread's copies complete in commit groups: cp_async_wait<K> returns when
+// at most K of its groups are still in flight.
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int K>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(K) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // mbarriers and TMA (flash attention, the RWKV-6 scans)
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {

@@ -2,6 +2,14 @@
 (``src/repro_torch/csrc/ssm_scan.cu``), the ports of the Pallas kernels
 ``repro.kernels.ssm_scan.kernel.ssm_scan_fwd`` and ``ssm_scan_bwd``.
 
+Both kernels split a channel's N states over ``LANES_PER_CHANNEL`` lanes
+(lane q holds the states n = 4k + q) and sum over n as each lane's running
+sum added pairwise across the four lanes. The forward takes 32 channels a
+CTA and streams x, dt, B and C through a ring in shared memory; the
+backward takes ``CHANNELS_PER_CTA`` channels a CTA, replays each 8-step
+segment from its checkpoint into registers, and writes one dB/dC partial
+per CTA, which ``ssm_scan_bwd`` sums here in a fixed order.
+
 Every tensor is f32 and contiguous, as the model hands them over (its
 ``float()`` casts and norms give new contiguous tensors). ``state_out`` may
 be ``h0`` itself: the final state then overwrites the initial one in place.
@@ -22,7 +30,8 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 
 STATE_DIMS = (8, 16)  # the kernels are instantiated for these
-CHANNELS_PER_CTA = 128  # ssm_scan.cu SSM_THREADS: one dB/dC partial per CTA
+LANES_PER_CHANNEL = 4  # ssm_scan.cu SSM_LANES: a channel's states over four lanes
+CHANNELS_PER_CTA = 128  # ssm_scan.cu SSM_BWD_CHANNELS: one dB/dC partial per backward CTA
 
 
 class SsmParams(ctypes.Structure):

@@ -683,10 +683,11 @@ def _ssm_case(gen, dev, B, S, Di, N):
 
 
 @pytest.mark.parametrize("N", [8, 16])
-@pytest.mark.parametrize("Di", [256, 16384])
+@pytest.mark.parametrize("Di", [200, 256, 16384])
 @pytest.mark.parametrize("S", [1, 37, 64, 130, 1000])
 @pytest.mark.parametrize("B", [1, 4])
 def test_ssm_scan_kernel_matches_plain(cuda, B, S, Di, N):
+    """Di=200 leaves the last CTA's channels ragged."""
     gen = torch.Generator(device=cuda).manual_seed(30)
     args = _ssm_case(gen, cuda, B, S, Di, N)
     reset_counts()
@@ -698,12 +699,13 @@ def test_ssm_scan_kernel_matches_plain(cuda, B, S, Di, N):
     torch.testing.assert_close(hT, hT_ref, atol=SSM_TOL, rtol=SSM_TOL)
 
 
+@pytest.mark.parametrize("N", [8, 16])
 @pytest.mark.parametrize("S", [1, 37])
-def test_ssm_scan_kernel_in_place_state_and_bitwise_repeatable(cuda, S):
+def test_ssm_scan_kernel_in_place_state_and_bitwise_repeatable(cuda, S, N):
     """``state_out=h0`` (a decode step updating its cache) gives the
     out-of-place result bit for bit, and two runs agree bit for bit."""
     gen = torch.Generator(device=cuda).manual_seed(31)
-    x, dt, A, Bc, Cc, D, h0 = _ssm_case(gen, cuda, 4, S, 16384, 16)
+    x, dt, A, Bc, Cc, D, h0 = _ssm_case(gen, cuda, 4, S, 16384, N)
     y, hT = ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0)
     y_again, hT_again = ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0)
     assert torch.equal(y, y_again) and torch.equal(hT, hT_again)
@@ -812,9 +814,10 @@ def test_ssm_bwd_kernel_matches_plain(cuda, B, S, Di, N):
                                    msg=lambda m: f"{name}: {m}")
 
 
-def test_ssm_bwd_kernel_bitwise_repeatable_and_writes_nothing_in_place(cuda):
+@pytest.mark.parametrize("N", [8, 16])
+def test_ssm_bwd_kernel_bitwise_repeatable_and_writes_nothing_in_place(cuda, N):
     gen = torch.Generator(device=cuda).manual_seed(41)
-    _, args = _ssm_bwd_case(gen, cuda, 2, 130, 16384, 16)
+    _, args = _ssm_bwd_case(gen, cuda, 2, 130, 16384, N)
     before = [t.clone() for t in args]
     got = ssm_scan_bwd(*args)
     again = ssm_scan_bwd(*args)

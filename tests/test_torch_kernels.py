@@ -49,7 +49,8 @@ from repro_torch.kernels.rwkv6_scan.kernel import (  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import CHECKPOINT  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.ssm_scan.kernel import (  # noqa: E402
-    CHANNELS_PER_CTA, SsmBwdParams, SsmParams, ssm_scan_bwd, ssm_scan_fwd)
+    CHANNELS_PER_CTA, LANES_PER_CHANNEL, SsmBwdParams, SsmParams, ssm_scan_bwd,
+    ssm_scan_fwd)
 from repro_torch.kernels.ssm_scan.ops import ssm_scan  # noqa: E402
 from repro_torch.optim.compress import dequantize_int8, quantize_int8  # noqa: E402
 
@@ -479,16 +480,20 @@ def test_rwkv_plan_constants_match_cuda_source():
 
 
 def test_ssm_checkpoint_interval_and_cta_width_match_cuda_source():
-    """B4 saves, and B6 replays from, a state every SSM_CK steps; B6 writes
-    one dB/dC partial per CTA of SSM_THREADS channels. The plain versions
-    and the wrappers' buffer shapes use ``CHECKPOINT`` and
+    """B4 saves, and B6 replays from, a state every SSM_CK steps; both split
+    a channel's states over SSM_LANES lanes; B6 writes one dB/dC partial per
+    CTA of SSM_BWD_CHANNELS channels. The plain versions and the wrappers'
+    buffer shapes use ``CHECKPOINT``, ``LANES_PER_CHANNEL`` and
     ``CHANNELS_PER_CTA``."""
     from repro_torch.kernels.ssm_scan.ref import CHECKPOINT as SSM_CHECKPOINT
 
     text = (SRC / "repro_torch" / "csrc" / "ssm_scan.cu").read_text()
-    assert int(re.search(r"constexpr int SSM_CK = (\d+);", text).group(1)) == SSM_CHECKPOINT
-    assert int(re.search(r"constexpr int SSM_THREADS = (\d+);", text).group(1)) == \
-        CHANNELS_PER_CTA
+    const = {name: int(re.search(r"constexpr int %s = (\d+);" % name, text).group(1))
+             for name in ("SSM_CK", "SSM_LANES", "SSM_BWD_CHANNELS")}
+    assert const == {"SSM_CK": SSM_CHECKPOINT, "SSM_LANES": LANES_PER_CHANNEL,
+                     "SSM_BWD_CHANNELS": CHANNELS_PER_CTA}
+    assert LANES_PER_CHANNEL == 4
+    assert "SSM_BWD_THREADS = SSM_LANES * SSM_BWD_CHANNELS" in text
 
 
 def test_port_imports_neither_jax_nor_reference():
