@@ -80,6 +80,19 @@ checkout of the repository. Phases (none catches its own failure):
    and backward in place, and every mixer leaf, kernel path against plain
    path (``jamba_grad_phase``).
 
+7. fleet — the paper's scheduler at its §4 scale (4000 servers, N_s = 80,
+   24 h in 8,641 ten-second slots) through ``repro_torch.exp``: the fluid
+   engine's run of coaster_r3 (yahoo_like, 23,653 jobs) and google_r3
+   (google_like) and its 280-point (replace fraction x threshold x budget)
+   cube on coaster_r3, each on the card and on the CPU from one trace, to
+   rtol 1e-5 (series to 1e-5 of their max |value|; the cube's best point
+   the same), then ``repro_torch.launch.sim`` on the card, its metrics equal
+   to the card's ``exp.run``. The fluid engine is a lane-batched torch
+   program with no kernel of its own, so it adds no row to the kernel
+   table; its times, a profile of 48 minutes of the day (kernels a slot
+   launches, the device's busy share) and the card go on a ``fleet`` line
+   before the kernel table. The phase must end within 60 s.
+
 ``--jamba-grad-study SEED [SEED ...]`` builds the kernels and runs only
 ``jamba_grad_phase`` for each seed, printing how far each mixer leaf lies
 from an f64 path under five mixes of kernels and plain versions; it prints
@@ -98,8 +111,9 @@ tolerances).
 TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN). Every
 phase releases what it allocated; the script checks that less than 1 GB is
 left allocated before each model phase, so the 80 GB card holds one
-phase's peak at a time. The last lines are the kernel table (JSON), the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+phase's peak at a time. The last lines are the fleet summary (JSON), the
+kernel table (JSON), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1819,6 +1833,150 @@ def _attention_f64(q, k, v, *, causal=True, window=0, softcap=0.0, prefix_len=0,
 
 
 # --------------------------------------------------------------------------
+# phase 7: the paper's scheduler, its fluid engine on the card
+
+
+FLEET_SCENARIOS = ("coaster_r3", "google_r3")   # yahoo_like and google_like traces
+FLEET_CUBE = {                                  # benchmarks/sweep_jax.py's grid: 280 points
+    "replace_fraction": [0.0, 0.25, 0.5, 0.75, 1.0],
+    "threshold": [float(x) for x in (0.85 + 0.02 * i for i in range(8))],
+    "max_transient": [40.0 * i for i in range(7)],
+}
+FLEET_RTOL = 1e-5             # summaries; series to this share of their max |value|
+FLEET_PROFILE_SLOTS = 288     # slots of coaster_r3 under the profiler (48 min of the day)
+FLEET_BUDGET_S = 60.0
+
+
+def _fleet_close(what, got, ref, *, series=False):
+    """Largest miss of ``got`` against ``ref`` (dicts of metrics, or of
+    series when ``series``), relative to each metric or to each series' max
+    |value|; raises beyond FLEET_RTOL."""
+    import numpy as np
+
+    worst = 0.0
+    for k, v in ref.items():
+        g, v = np.asarray(got[k], np.float64), np.asarray(v, np.float64)
+        scale = np.abs(v).max(initial=0.0) if series else np.abs(v)
+        miss = float((np.abs(g - v) / np.maximum(scale, 1e-30)).max(initial=0.0))
+        if g.shape != v.shape or not miss <= FLEET_RTOL:
+            raise AssertionError(f"fleet {what} {k}: card vs CPU {miss:.3e} over "
+                                 f"{FLEET_RTOL} (shapes {g.shape}, {v.shape})")
+        worst = max(worst, miss)
+    return worst
+
+
+def fleet_phase(dev):
+    """The scheduler at the paper's §4 scale (4000 servers, N_s = 80, 24 h in
+    10 s slots) through its entry points: ``exp.run(name, "fluid")`` for the
+    yahoo_like and google_like presets and ``exp.sweep`` over the 280-point
+    (replace fraction x threshold x budget) cube, each on the card and on
+    the CPU from one trace, and ``launch.sim.main`` on the card. Card and
+    CPU must agree to FLEET_RTOL (series to that share of their max); the
+    cube's best point must be the same. The run is enqueued without a host
+    sync (checked under the sync debug mode that raises on one); a profile
+    of its first FLEET_PROFILE_SLOTS slots gives the kernels a slot launches
+    and the device's busy share. Wall times are host clocks around work
+    that ends in a synchronisation. Returns the ``fleet`` summary."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch import exp
+    from repro_torch.core import simtorch
+    from repro_torch.launch import sim as sim_launcher
+    from repro_torch.sched import get_scenario
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    t_phase = time.perf_counter()
+    summary = {"scenarios": {}}
+    traces, card_runs = {}, {}
+    for name in FLEET_SCENARIOS:
+        t0 = time.perf_counter()
+        traces[name] = tr = get_scenario(name).trace()
+        trace_ms = 1e3 * (time.perf_counter() - t0)
+        res, ms = {}, {}
+        for d in (dev, "cpu"):
+            res[d], ms[d] = timed(lambda: exp.run(name, "fluid", trace=tr, device=d))
+        card_runs[name] = res[dev]
+        n_slots = len(res["cpu"].series["lr"])
+        row = dict(jobs=tr.n_jobs, tasks=tr.n_tasks, slots=n_slots, lanes=1,
+                   trace_ms=trace_ms, card_ms=ms[dev], cpu_ms=ms["cpu"],
+                   card_us_per_slot=1e3 * ms[dev] / n_slots,
+                   max_rel_err_metrics=_fleet_close(f"{name} metrics", res[dev].metrics,
+                                                    res["cpu"].metrics),
+                   max_err_series=_fleet_close(f"{name} series", res[dev].series,
+                                               res["cpu"].series, series=True),
+                   short_avg_wait_s=res[dev].metrics["short_avg_wait_s"],
+                   avg_active_transients=res[dev].metrics["avg_active_transients"])
+        summary["scenarios"][name] = row
+        log(f"  fleet {name}: {json.dumps(row)}")
+
+    tr = traces["coaster_r3"]
+    cube, ms = {}, {}
+    for d in (dev, "cpu"):
+        cube[d], ms[d] = timed(lambda: exp.sweep("coaster_r3", FLEET_CUBE, engine="fluid",
+                                                 trace=tr, device=d))
+    best = {d: cube[d].best("short_avg_wait_s") for d in cube}
+    if cube[dev].shape != (5, 8, 7) or any(
+            best[dev][a] != best["cpu"][a] for a in FLEET_CUBE):
+        raise AssertionError(f"fleet cube: card's best point {best[dev]} is not the "
+                             f"CPU's {best['cpu']}")
+    summary["cube"] = dict(points=int(np.prod(cube[dev].shape)), slots=summary[
+        "scenarios"]["coaster_r3"]["slots"], card_ms=ms[dev], cpu_ms=ms["cpu"],
+        max_rel_err=_fleet_close("cube metrics", cube[dev].metrics, cube["cpu"].metrics),
+        best=best[dev])
+    log(f"  fleet cube: {json.dumps(summary['cube'])}")
+
+    # the launcher synthesizes the same trace (seed 42) and runs the same
+    # program on the card: its metrics equal exp.run's above, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = pathlib.Path(tmp) / "coaster_r3.runresult.json"
+        _, ms_launch = timed(lambda: sim_launcher.main(
+            ["--scenario", "coaster_r3", "--engine", "fluid", "--out", str(out_path)]))
+        launched = json.loads(out_path.read_text())
+    if launched["metrics"] != card_runs["coaster_r3"].metrics:
+        raise AssertionError(f"fleet launcher: {launched['metrics']} is not exp.run's "
+                             f"{card_runs['coaster_r3'].metrics}")
+    summary["launcher"] = dict(card_ms=ms_launch, run_wall_s=launched["wall_time_s"])
+    log(f"  fleet launcher: {json.dumps(summary['launcher'])}")
+
+    # the slot loop never waits on the card, and what a slot costs there
+    sc = get_scenario("coaster_r3")
+    lw, sw, fcfg, ctrl = sc.fluid_setup(trace=tr)
+    lw, sw = lw[:FLEET_PROFILE_SLOTS], sw[:FLEET_PROFILE_SLOTS]
+    pol = sc.fluid_params()
+    run = lambda: simtorch.simulate_fluid(lw, sw, fcfg, policy=pol, device=dev, **ctrl)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, wall_ms = timed(run)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t0 = time.perf_counter()
+    prof = profiled(run, 1)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    summary["profile"] = dict(
+        slots=FLEET_PROFILE_SLOTS, wall_us_per_slot=1e3 * wall_ms / FLEET_PROFILE_SLOTS,
+        kernels_per_slot=sum(e.count for e in kernels) / FLEET_PROFILE_SLOTS,
+        device_us_per_slot=device_us / FLEET_PROFILE_SLOTS,
+        busy_share=device_us / (1e3 * wall_ms) if device_us > 0 else None,
+        profile_s=time.perf_counter() - t0)
+    log(f"  fleet profile: {json.dumps(summary['profile'])}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    if summary["phase_s"] > FLEET_BUDGET_S:
+        raise AssertionError(f"fleet phase took {summary['phase_s']:.1f} s, over its "
+                             f"{FLEET_BUDGET_S} s budget")
+    return summary
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -1896,6 +2054,7 @@ def main(argv=None):
             by_path["training"][name] += n
     worst_grad, depth_ratio = grad_phase(dev, args.seed)
     jamba_in_place, jamba_leaves = jamba_grad_phase(dev, args.seed)
+    fleet = fleet_phase(dev)
 
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1929,8 +2088,9 @@ def main(argv=None):
         f"check passed: rwkv6-3b worst {worst_grad:.3e} <= {LOGIT_RTOL}, full depth "
         f"{depth_ratio:.3f} <= 1 of its limit; jamba block in place "
         f"{jamba_in_place:.3e} <= {LOGIT_RTOL}, every mixer leaf {jamba_leaves:.3e} <= "
-        f"{LOGIT_RTOL}; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        f"{LOGIT_RTOL}; fleet card vs CPU within {FLEET_RTOL} in "
+        f"{fleet['phase_s']:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"fleet": {**fleet, "card": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -940,3 +940,69 @@ def test_jamba_train_step_kernel_path_matches_plain_path(cuda):
             assert BWD_CALLS["flash_attention_bwd"] == 2 * 2
             assert sum(PLAIN_CALLS.values()) == 0
     np.testing.assert_allclose(losses[False], losses[True], atol=5e-4, rtol=5e-4)
+
+
+# -------------------------------------------------------------- fluid engine
+#
+# The scheduler's fluid engine (``repro_torch.core.simtorch``) on the card
+# against the same program on the CPU, at the quick scale (400 servers, 4 h):
+# summaries to rtol 1e-5, series to 1e-5 of their max |value|.
+
+def _fluid_close(got, ref):
+    for k, v in ref.metrics.items():
+        np.testing.assert_allclose(got.metrics[k], v, rtol=1e-5, atol=0, err_msg=k)
+    assert sorted(got.series) == sorted(ref.series)
+    for k, v in ref.series.items():
+        assert np.abs(got.series[k] - v).max() <= 1e-5 * np.abs(v).max(), k
+
+
+@pytest.mark.parametrize("name", ["coaster_r3", "burst_guard_r3", "google_r3"])
+def test_fluid_run_on_the_card_matches_cpu(cuda, name):
+    from repro_torch import exp
+    from repro_torch.sched import get_scenario
+
+    trace = get_scenario(name).trace(quick=True)
+    got = exp.run(name, "fluid", quick=True, trace=trace, device=cuda)
+    ref = exp.run(name, "fluid", quick=True, trace=trace, device="cpu")
+    _fluid_close(got, ref)
+
+
+def test_fluid_cube_on_the_card_matches_cpu(cuda):
+    from repro_torch import exp
+    from repro_torch.sched import get_scenario
+
+    grid = {"replace_fraction": [0.0, 0.25, 0.5, 0.75, 1.0],
+            "threshold": list(np.linspace(0.85, 0.99, 8)),
+            "max_transient": list(np.linspace(0.0, 24.0, 7))}
+    trace = get_scenario("coaster_r3").trace(quick=True)
+    got = exp.sweep("coaster_r3", grid, engine="fluid", quick=True, trace=trace,
+                    device=cuda)
+    ref = exp.sweep("coaster_r3", grid, engine="fluid", quick=True, trace=trace,
+                    device="cpu")
+    assert got.shape == ref.shape == (5, 8, 7)
+    for k, v in ref.metrics.items():
+        np.testing.assert_allclose(got.metrics[k], v, rtol=1e-5, atol=0, err_msg=k)
+    assert got.best("short_avg_wait_s") == pytest.approx(
+        ref.best("short_avg_wait_s"), rel=1e-5)
+
+
+def test_fluid_slot_loop_never_waits_on_the_card(cuda):
+    """Every slot is enqueued without a host sync: the whole run, uploads
+    included, passes under the sync debug mode that raises on one."""
+    from repro_torch.core import simtorch
+    from repro_torch.sched import get_scenario
+
+    lw, sw, fcfg, ctrl = get_scenario("spot_r3").fluid_setup(quick=True)
+    pol = get_scenario("spot_r3").fluid_params(quick=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = simtorch.simulate_fluid(lw, sw, fcfg, policy=pol, device=cuda, **ctrl)
+        grid = simtorch.sweep(lw, sw, fcfg, [0.9, 0.95], [0.0, 12.0],
+                              policy=pol, replace_fractions=[0.5, 1.0],
+                              n_short_reserved=8, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out["series"]["lr"].device.type == "cuda"
+    assert tuple(grid["avg_lr"].shape) == (2, 2, 2)
+    assert torch.isfinite(out["avg_short_delay"]).item()

@@ -512,11 +512,23 @@ def test_port_imports_neither_jax_nor_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 47
+    assert len(names) >= 86
     assert {"repro_torch.checkpoint.checkpointer", "repro_torch.data.pipeline",
             "repro_torch.runtime.elastic", "repro_torch.runtime.straggler",
             "repro_torch.launch.train", "repro_torch.launch.steps",
             "repro_torch.optim.adamw", "repro_torch.optim.schedule"} <= names
+    # the scheduler: DES, policies, controller, scenarios, workload
+    # synthesis, experiment API, fluid engine, launcher
+    assert {"repro_torch.core.engine", "repro_torch.core.simtorch",
+            "repro_torch.core.cluster", "repro_torch.core.jobs",
+            "repro_torch.core.metrics", "repro_torch.sched.controller",
+            "repro_torch.sched.policy", "repro_torch.sched.scenarios",
+            "repro_torch.workload.arrivals", "repro_torch.workload.builders",
+            "repro_torch.workload.io", "repro_torch.traces.synthetic",
+            "repro_torch.obs.events", "repro_torch.obs.trace",
+            "repro_torch.tenancy.admission", "repro_torch.exp.runner",
+            "repro_torch.exp.results", "repro_torch.exp.compare",
+            "repro_torch.configs.cloudcoaster", "repro_torch.launch.sim"} <= names
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
