@@ -92,6 +92,26 @@ checkout of the repository. Phases (none catches its own failure):
    table; its times, a profile of 48 minutes of the day (kernels a slot
    launches, the device's busy share) and the card go on a ``fleet`` line
    before the kernel table. The phase must end within 60 s.
+8. serving fleet — the scheduler mapped onto serving
+   (``repro_torch.runtime.serving``, the ``serving`` engine) through its
+   entry points, on serve_batched_yahoo (4-slot replicas): (a) at the
+   paper's scale on the host with no model (80 replicas, the 24 h trace,
+   the fleet's 20,000-request cap, 36,531 ticks); (b) at quick scale with
+   the trace cut to its first 600 s (``SERVE_FLEET_CUT``; 14 requests,
+   521 ticks, 631 decode ticks of a replica), with
+   ``repro_torch.examples.serve_bursty.build_decoder`` behind the fleet's
+   decode hook: full-width starcoder2-3b, paged (4 slots, max_len 8192,
+   16-token pages), prompts of lengths ``PROMPT_LENS``, ``MAX_NEW`` new
+   tokens each. Counts zeroed just before (b) and read just after: one
+   batcher step per hook call, as many as a host run of the same cut with
+   a counting hook makes; B1 launched once per step and layer, B2 once per
+   admitted request and layer; no plain version; the fleet's metrics and
+   per-tick event counts equal the run with no hook. (c)
+   ``launch.serve --scenario serve_yahoo --quick`` in-process, its metrics
+   equal to ``exp.run``'s. Its times, (b)'s decode ms a step, tokens/s and
+   peak memory and the card go on a ``serving_fleet`` line before the
+   kernel table; (b)'s launches join the table's counts. The phase must end
+   within 120 s.
 
 ``--jamba-grad-study SEED [SEED ...]`` builds the kernels and runs only
 ``jamba_grad_phase`` for each seed, printing how far each mixer leaf lies
@@ -112,13 +132,14 @@ TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN). Every
 phase releases what it allocated; the script checks that less than 1 GB is
 left allocated before each model phase, so the 80 GB card holds one
 phase's peak at a time. The last lines are the fleet summary (JSON), the
-kernel table (JSON), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+serving fleet's summary (JSON), the kernel table (JSON), the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import pathlib
 import shutil
@@ -1977,6 +1998,153 @@ def fleet_phase(dev):
 
 
 # --------------------------------------------------------------------------
+# phase 8: the elastic serving fleet, full-width starcoder2-3b behind its hook
+
+
+SERVE_FLEET = "serve_batched_yahoo"
+SERVE_FLEET_PAPER = dict(replicas=80, requests=20000, ticks=36531)
+SERVE_FLEET_CUT = {"horizon": 600.0}   # run (b): quick scale, the first 10 minutes
+SERVE_FLEET_BUDGET_S = 120.0
+
+
+def serving_fleet_phase(dev, seed):
+    """The elastic serving fleet through its entry points: (a) the paper's
+    scale on the host, (b) the cut quick trace with full-width starcoder2-3b
+    on the card behind ``decode_fn``, (c) the ``launch.serve`` fleet mode
+    (see the module docstring, phase 8). A hook call ends in the batcher's
+    read of the new tokens, which waits for the card, so host time around
+    it is a step's time; a call that admitted requests holds their
+    prefills too. Returns the ``serving_fleet`` summary and (b)'s launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import exp
+    from repro_torch.examples.serve_bursty import build_decoder
+    from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models.decoder import DecoderLM
+
+    check_released(dev, "the serving fleet")
+    t_phase = time.perf_counter()
+    summary = {}
+
+    t0 = time.perf_counter()
+    paper = exp.run(SERVE_FLEET, "serving")
+    wl = paper.meta["workload"]
+    got = dict(replicas=paper.config["n_replicas"], requests=wl["n_requests"],
+               ticks=wl["max_ticks"])
+    if got != SERVE_FLEET_PAPER:
+        raise AssertionError(f"serving fleet at the paper's scale: {got}, not "
+                             f"{SERVE_FLEET_PAPER}")
+    summary["paper"] = dict(**got, dropped=wl["n_requests_dropped"],
+                            wall_s=time.perf_counter() - t0, metrics=paper.metrics)
+    log(f"  serving fleet (a) paper scale, host, no model: {json.dumps(summary['paper'])}")
+
+    # (b): the cut trace on the host, with a hook that only counts its
+    # calls and with none, then with the full-width model behind the hook
+    cut = dict(quick=True, seed=0, sim_seed=0, trace_overrides=SERVE_FLEET_CUT,
+               record_events=True)
+    calls = []  # the replica of each hook call
+    counted = exp.run(SERVE_FLEET, "serving", decode_fn=calls.append, **cut)
+    bare = exp.run(SERVE_FLEET, "serving", **cut)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    decode_fn, stats = build_decoder("paged", arch=ARCH, smoke=False, device=dev,
+                                     seed=seed, max_len=8192, prompt_lens=PROMPT_LENS,
+                                     max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b = stats["batcher"]
+    step_ms, prefill_step_ms = [], []
+
+    def timed_hook(rid):
+        n_req = len(stats["requests"])
+        t = time.perf_counter()
+        decode_fn(rid)
+        ms = 1e3 * (time.perf_counter() - t)
+        (prefill_step_ms if len(stats["requests"]) > n_req else step_ms).append(ms)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = exp.run(SERVE_FLEET, "serving", decode_fn=timed_hook, **cut)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+    n_attn = sum(s.mixer == "attn" for s in b.model.layer_specs)
+    n_req = len(stats["requests"])
+    want = {"paged_decode_attention": b.step_count * n_attn,
+            "flash_attention": n_req * n_attn}
+    if not stats["calls"] == b.step_count == len(calls) > 0:
+        raise AssertionError(f"serving fleet: {stats['calls']} hook calls and "
+                             f"{b.step_count} batcher steps; the host run called "
+                             f"its hook {len(calls)} times")
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"serving fleet: launches {counts}, want {want}")
+    if sum(plain.values()):
+        raise AssertionError(f"serving fleet: plain versions ran on the card: {plain}")
+    for other in (counted, bare):
+        if json.dumps(run.metrics) != json.dumps(other.metrics) or not np.array_equal(
+                run.series["event_counts"], other.series["event_counts"]):
+            raise AssertionError(f"serving fleet: metrics {run.metrics} or event counts "
+                                 f"differ from the run without the model "
+                                 f"{other.metrics}")
+    hook_s = 1e-3 * (sum(step_ms) + sum(prefill_step_ms))
+    summary["model"] = dict(
+        cut=f"quick scale, trace horizon {SERVE_FLEET_CUT['horizon']} s", arch=ARCH,
+        layout="paged", slots=b.max_slots, max_len=b.max_len,
+        page_tokens=b.kv_block_size, requests=run.meta["workload"]["n_requests"],
+        ticks=run.meta["workload"]["max_ticks"], hook_calls=stats["calls"],
+        decoder_requests=n_req, tokens=stats["n"], wall_s=wall, init_s=init_s,
+        hook_s=hook_s, fleet_host_s=wall - hook_s,
+        decode_ms_per_step=float(np.mean(step_ms)),
+        decode_ms_median=float(np.median(step_ms)),
+        prefill_step_ms=float(np.mean(prefill_step_ms)) if prefill_step_ms else None,
+        tokens_per_s=stats["n"] / hook_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        kv_cache_bytes=b.kv_cache_bytes(), launches=counts,
+        plain_calls=sum(plain.values()),
+        event_counts=run.meta["obs"]["events"], metrics=run.metrics)
+    # after the counted run: these launches go uncounted
+    t0 = time.perf_counter()
+    pos = torch.as_tensor(b.pos, device=dev)
+    table = torch.as_tensor(b.allocator.table, device=dev)
+    with torch.inference_mode():
+        prof = decode_profile(lambda: DecoderLM.decode_step_paged(
+            b.model, b.params, b.pools, tokens=b.last_tok, pos_vec=pos, pages=table))
+    summary["model"]["decode_profile"] = prof
+    summary["model"]["profile_s"] = time.perf_counter() - t0
+    log(f"  serving fleet (b) {summary['model']['cut']}, {ARCH} paged on the card "
+        f"behind decode_fn: {json.dumps(summary['model'])}")
+    del decode_fn, stats, b, timed_hook, pos, table
+    gc.collect()  # the fleet's view holds the fleet, and the fleet the hook
+    torch.cuda.empty_cache()
+
+    # (c): the launcher's fleet mode synthesizes the same trace (seed 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = pathlib.Path(tmp) / "serve_yahoo.runresult.json"
+        serve_launcher.main(["--scenario", "serve_yahoo", "--quick", "--out",
+                             str(out_path)])
+        launched = json.loads(out_path.read_text())
+    launch_s = time.perf_counter() - t0
+    direct = exp.run("serve_yahoo", "serving", quick=True, seed=0, sim_seed=0)
+    if launched["metrics"] != direct.metrics:
+        raise AssertionError(f"serving launcher: {launched['metrics']} is not "
+                             f"exp.run's {direct.metrics}")
+    summary["launcher"] = dict(wall_s=launch_s, run_wall_s=launched["wall_time_s"],
+                               requests=direct.metrics["n_requests"])
+    log(f"  serving fleet (c) launch.serve --scenario serve_yahoo --quick: "
+        f"{json.dumps(summary['launcher'])}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    if summary["phase_s"] > SERVE_FLEET_BUDGET_S:
+        raise AssertionError(f"serving fleet phase took {summary['phase_s']:.1f} s, "
+                             f"over its {SERVE_FLEET_BUDGET_S} s budget")
+    return summary, counts
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -2055,6 +2223,10 @@ def main(argv=None):
     worst_grad, depth_ratio = grad_phase(dev, args.seed)
     jamba_in_place, jamba_leaves = jamba_grad_phase(dev, args.seed)
     fleet = fleet_phase(dev)
+    serving_fleet, more = serving_fleet_phase(dev, args.seed)
+    by_path["serving_fleet"] = dict(more)
+    for name, n in more.items():
+        launches[name] += n
 
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2089,8 +2261,11 @@ def main(argv=None):
         f"{depth_ratio:.3f} <= 1 of its limit; jamba block in place "
         f"{jamba_in_place:.3e} <= {LOGIT_RTOL}, every mixer leaf {jamba_leaves:.3e} <= "
         f"{LOGIT_RTOL}; fleet card vs CPU within {FLEET_RTOL} in "
-        f"{fleet['phase_s']:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+        f"{fleet['phase_s']:.1f} s; serving fleet with and without the model equal "
+        f"in {serving_fleet['phase_s']:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"fleet": {**fleet, "card": smi}}))
+    print(json.dumps({"serving_fleet": {**serving_fleet, "card": smi}}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

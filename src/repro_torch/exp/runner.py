@@ -3,15 +3,16 @@
 
 Engines are pluggable adapters registered in this package's own registry
 (``des`` — the exact discrete-event simulator, ``fluid`` — the slotted
-fluid model as a torch program, on ``cuda`` unless ``device="cpu"``); they
-take the same call signature and emit the same
-:class:`~repro_torch.exp.results.RunResult` schema, so a consumer can flip
-engines with one string.  ``sweep`` fans a scenario out over a parameter
-grid: serial (optionally multiprocess) DES runs per grid point, or the
-(replace_fraction x threshold x max_transient) fluid cube as one lane axis
-of one torch program — same signature, results addressable by grid point
-either way.  The JAX package's serving engines (``serving``,
-``serving_jax``) have no counterpart here yet.
+fluid model as a torch program, on ``cuda`` unless ``device="cpu"``,
+``serving`` — the pod-level elastic serving fleet driven by the same trace
+builders, on the host); they take the same call signature and emit the
+same :class:`~repro_torch.exp.results.RunResult` schema, so a consumer can
+flip engines with one string.  ``sweep`` fans a scenario out over a
+parameter grid: serial (optionally multiprocess) DES or serving runs per
+grid point, or the (replace_fraction x threshold x max_transient) fluid
+cube as one lane axis of one torch program — same signature, results
+addressable by grid point either way.  The JAX package's ``serving_jax``
+engine (the fleet as one device program) has no counterpart here yet.
 
 Register a new engine adapter::
 
@@ -42,7 +43,7 @@ import numpy as np
 
 from repro_torch.exp.results import (RunResult, _jsonable, _load_npz,
                                      _save_npz, from_fluid_output,
-                                     from_sim_result)
+                                     from_serving_fleet, from_sim_result)
 from repro_torch.sched import Scenario, get_scenario
 
 # --------------------------------------------------------- declarative overrides
@@ -225,8 +226,63 @@ def _run_fluid(sc: Scenario, *, quick: bool, seed: int, sim_seed: int = 0,
         quick=quick, seed=seed, wall_time_s=time.perf_counter() - t0, trace=trace)
 
 
+def _run_serving(sc: Scenario, *, quick: bool, seed: int, sim_seed: int,
+                 trace, trace_overrides: Dict, sim_overrides: Dict,
+                 decode_fn=None, record_events: bool = False,
+                 tracer=None) -> RunResult:
+    """Pod-level serving engine (``repro_torch.runtime.serving``), on the
+    host: the scenario's trace becomes a decode-request stream + long-job
+    pinning signal, routed by the scenario's short-placement policy over an
+    ``ElasticServingFleet``.  ``decode_fn`` optionally runs a real model
+    decode step per replica tick (``repro_torch.examples.serve_bursty``).
+    ``record_events=True`` captures the typed scheduler event stream into
+    the result (``series["event_counts"]`` + event totals under
+    ``meta["obs"]``); ``tracer`` (an ``obs.Tracer``) collects the Perfetto
+    timeline — both off by default (zero cost)."""
+    from repro_torch.runtime.serving import (ElasticServingFleet,
+                                             build_serving_workload)
+
+    t0 = time.perf_counter()
+    if trace is None:
+        trace = sc.trace(quick=quick, seed=seed,
+                         trace_overrides=trace_overrides)
+    cfg = sc.serving_config(quick=quick, sim_overrides=sim_overrides)
+    requests, pinned_fn, max_ticks, wl_meta = build_serving_workload(trace,
+                                                                     cfg)
+    _, short_pol = sc.policies()
+    # multi-tenant trace: per-tenant SLO bookkeeping (tick units) drives
+    # the fleet's debt-aware drain/hedge victim selection; the policy's
+    # token buckets move from work-seconds to work-ticks
+    tenancy = None
+    t_names = (trace.meta or {}).get("tenants")
+    if t_names:
+        from repro_torch.tenancy import TenancyState
+
+        slo = trace.meta.get("tenant_slo_s", [120.0] * len(t_names))
+        tenancy = TenancyState(t_names, [s / cfg.tick_s for s in slo])
+        if hasattr(short_pol, "scale_costs") and cfg.tick_s != 1.0:
+            short_pol.scale_costs(1.0 / cfg.tick_s)
+    recorder = None
+    if record_events:
+        from repro_torch.obs import EventRecorder
+
+        recorder = EventRecorder()
+    fleet = ElasticServingFleet.from_config(
+        cfg, short_policy=short_pol, decode_fn=decode_fn, seed=sim_seed,
+        drain_preference=sc.drain_preference, recorder=recorder,
+        tracer=tracer, tenancy=tenancy)
+    fleet.run(requests, pinned_fn, max_ticks)
+    return from_serving_fleet(
+        fleet, requests, scenario=sc.name, config=cfg, workload_meta=wl_meta,
+        overrides={"trace": trace_overrides, "sim": sim_overrides},
+        quick=quick, seed=seed, sim_seed=sim_seed,
+        wall_time_s=time.perf_counter() - t0, trace=trace,
+        recorder=recorder)
+
+
 register_engine("des", _run_des)
 register_engine("fluid", _run_fluid)
+register_engine("serving", _run_serving)
 
 
 # ---------------------------------------------------------------- grid sweeps
@@ -349,11 +405,13 @@ def sweep(scenario: Union[str, Scenario], grid: Dict[str, Sequence],
       the caller passes ``"cpu"``), missing cube axes pinned to the
       scenario's own value.  Result dims follow the cube order
       (p, threshold, budget) restricted to the requested axes.
-    * ``engine="des"`` (or any registered adapter): Cartesian fan-out, one
-      full engine run per point — serial, or multiprocess with
-      ``processes=N``.  Axis names are ``OVERRIDE_SPEC`` aliases (``r``,
-      ``p``, ``threshold``...) or raw ``SimConfig`` fields.  Result dims
-      follow ``grid`` insertion order.
+    * ``engine="des"``, ``"serving"`` (or any registered adapter):
+      Cartesian fan-out, one full engine run per point — serial, or
+      multiprocess with ``processes=N``.  Axis names are ``OVERRIDE_SPEC``
+      aliases (``r``, ``p``, ``threshold``...) or raw ``SimConfig`` fields
+      (and ``ServingFleetConfig`` fields such as ``max_slots`` or
+      ``n_reserve`` for ``serving``).  Result dims follow ``grid``
+      insertion order.
     """
     sc = _coerce(scenario)
     if not grid or any(len(v) == 0 for v in grid.values()):

@@ -11,9 +11,11 @@ the override flags are generated from the declarative
       --out artifacts/spot_r3.runresult.npz
   PYTHONPATH=src python -m repro_torch.launch.sim --scenario coaster_r3 --quick \
       --engine fluid --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.sim --scenario serve_yahoo --quick \
+      --engine serving --trace-out serve_yahoo.trace.json
 
-The DES runs on the host and needs no card. The fluid engine runs on
-``--device`` (default ``cuda``, which raises without a card).
+The DES and the serving fleet run on the host and need no card. The fluid
+engine runs on ``--device`` (default ``cuda``, which raises without a card).
 
 ``--out`` persists the full :class:`~repro_torch.exp.RunResult` — time series
 included (per-task waits for the DES, the per-slot fluid trajectories that
@@ -46,8 +48,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--quick", action="store_true",
                     help="CI-sized scale (400 servers / 4 h)")
-    ap.add_argument("--engine", default=None, choices=["des", "fluid"],
-                    help="engine adapter (default des)")
+    ap.add_argument("--engine", default=None,
+                    choices=["des", "fluid", "serving"],
+                    help="engine adapter (default des; 'serving' runs the "
+                         "pod-level elastic serving fleet)")
     ap.add_argument("--fluid", action="store_true",
                     help="alias for --engine fluid")
     ap.add_argument("--device", default="cuda",
@@ -57,8 +61,9 @@ def main(argv=None):
                          "as npz, or JSON with a .json suffix")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="write a Chrome trace-event JSON timeline "
-                         "(open in ui.perfetto.dev), counter tracks "
-                         "reconstructed from the RunResult series")
+                         "(open in ui.perfetto.dev); the serving engine "
+                         "records live spans, other engines reconstruct "
+                         "counter tracks from the RunResult series")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -85,15 +90,25 @@ def main(argv=None):
           f"util={tr.meta['utilization']:.3f}")
     engine = args.engine or ("fluid" if args.fluid else "des")
     engine_kwargs = dict(device=args.device) if engine == "fluid" else {}
+    tracer = None
+    if args.trace_out and engine == "serving":
+        from repro_torch.obs import Tracer
+
+        cfg = sc.serving_config(quick=args.quick, sim_overrides=sim_over)
+        tracer = Tracer(tick_s=cfg.tick_s)
+        engine_kwargs = dict(tracer=tracer, record_events=True)
     res = exp_run(sc, engine=engine,
                   quick=args.quick, seed=args.seed, sim_seed=args.seed,
                   trace=tr, trace_overrides=trace_over,
                   sim_overrides=sim_over, **engine_kwargs)
     print(json.dumps(res.metrics, indent=1, default=float))
     if args.trace_out:
-        from repro_torch.obs import trace_from_run_result
+        if tracer is not None:
+            path = tracer.export(args.trace_out)
+        else:
+            from repro_torch.obs import trace_from_run_result
 
-        path = trace_from_run_result(res, args.trace_out)
+            path = trace_from_run_result(res, args.trace_out)
         print(f"trace written to {path}", file=sys.stderr)
     if args.out:
         path = res.save(args.out)

@@ -120,6 +120,40 @@ class Scenario:
                         controller=self.controller(cfg),
                         recorder=recorder)
 
+    def serving_config(self, *, quick: bool = False,
+                       sim_overrides: Optional[Dict] = None):
+        """Resolve a :class:`~repro_torch.runtime.serving.ServingFleetConfig` for
+        ``repro_torch.exp.run(..., engine="serving")``.
+
+        Shared knobs (threshold, provisioning_delay, revocation_mttf,
+        probe_*) and the transient budget K = r * N_s * p flow through the
+        scenario's ``SimConfig`` — the fleet is sized like the short
+        partition (N_s replicas) and pinning is scaled against the general
+        partition. Serving-only keys in ``sim_overrides`` (``max_transient``,
+        ``n_reserve``, ``pin_scale``, ...) override ``serving_kwargs``, so
+        they work as pointwise ``sweep`` axes.
+        """
+        from dataclasses import fields as _fields
+
+        from repro_torch.runtime.serving import ServingFleetConfig
+
+        over = dict(sim_overrides or {})
+        sim_fields = {f.name for f in _fields(SimConfig)}
+        serve_fields = {f.name for f in _fields(ServingFleetConfig)}
+        serve_over = {k: over.pop(k) for k in list(over)
+                      if k in serve_fields - sim_fields}
+        cfg = self.sim_config(quick=quick, sim_overrides=over)
+        kw = dict(n_replicas=cfg.n_short_reserved,
+                  max_transient=cfg.max_transient,
+                  threshold=cfg.threshold,
+                  provisioning_delay=cfg.provisioning_delay,
+                  revocation_mttf=cfg.revocation_mttf,
+                  probe_d=cfg.probe_d, probe_retries=cfg.probe_retries,
+                  n_general_ref=cfg.n_general)
+        kw.update(self.serving_kwargs)
+        kw.update(serve_over)
+        return ServingFleetConfig(**kw)
+
     def fluid_params(self, *, quick: bool = False) -> FluidPolicyParams:
         pol = make_short_policy(self.short_policy, **self.policy_kwargs)
         return pol.fluid_params(self.sim_config(quick=quick))
@@ -231,14 +265,13 @@ register_scenario(Scenario(
     description="r=3 with heterogeneous server speeds (30% of the general "
                 "partition at 0.6x) — co-located-hardware regime",
     **_coaster(3.0, hetero_slow_frac=0.3, hetero_slow_speed=0.6)))
-# ---------------- serving-engine scenarios ----------------------------------
+# ---------------- serving-engine scenarios (repro_torch.runtime.serving) ---------
 #
-# The JAX package also runs these on its serving fleet (engine="serving",
-# short tasks as decode requests, the long class as replica pinning); this
-# package has no serving engine yet and runs them on the DES and the fluid
-# engine.  The serving fleet is short-partition-sized, so the controller's
-# transient rentals are what keep request delay bounded while long jobs pin
-# most of the pods.
+# Runnable on all three engines; engine="serving" maps short tasks to decode
+# requests and the long class to replica pinning (see Scenario.serving_config
+# and repro_torch.runtime.serving.build_serving_workload).  The serving fleet is
+# short-partition-sized, so the controller's transient rentals are what keep
+# request delay bounded while long jobs pin most of the pods.
 
 #: shared serving calibration: p=0.5 r=3 budget, pod-level threshold 0.5
 #: (the fleet is short-partition-sized, so the controller must keep roughly

@@ -1006,3 +1006,35 @@ def test_fluid_slot_loop_never_waits_on_the_card(cuda):
     assert out["series"]["lr"].device.type == "cuda"
     assert tuple(grid["avg_lr"].shape) == (2, 2, 2)
     assert torch.isfinite(out["avg_short_delay"]).item()
+
+
+# ------------------------------------------------------------ serving fleet
+#
+# The elastic serving fleet on the host with a model on the card behind its
+# decode hook (the example's gemma2-2b smoke decoder, paged KV), through
+# serve_batched_yahoo's quick trace cut to 300 s: the scheduler's metrics and
+# per-tick events equal the run without a model, every tick's decode runs
+# through B1 and every admission's prefill through B2, and no plain version
+# runs.
+
+def test_serving_fleet_decodes_through_the_kernels(cuda):
+    import json
+
+    from repro_torch import exp
+    from repro_torch.examples.serve_bursty import build_decoder
+
+    kw = dict(quick=True, trace_overrides={"horizon": 300.0}, record_events=True)
+    bare = exp.run("serve_batched_yahoo", "serving", **kw)
+    decode_fn, stats = build_decoder("paged", device=cuda)
+    reset_counts()
+    got = exp.run("serve_batched_yahoo", "serving", decode_fn=decode_fn, **kw)
+    torch.cuda.synchronize()
+    launches, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+    assert json.dumps(got.metrics) == json.dumps(bare.metrics)
+    assert np.array_equal(got.series["event_counts"], bare.series["event_counts"])
+    b = stats["batcher"]
+    n_attn = sum(s.mixer == "attn" for s in b.model.layer_specs)
+    assert stats["calls"] == b.step_count > 0
+    assert launches["paged_decode_attention"] == b.step_count * n_attn
+    assert launches["flash_attention"] == len(stats["requests"]) * n_attn
+    assert sum(plain.values()) == 0, plain

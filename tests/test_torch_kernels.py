@@ -512,7 +512,7 @@ def test_port_imports_neither_jax_nor_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 86
+    assert len(names) >= 89
     assert {"repro_torch.checkpoint.checkpointer", "repro_torch.data.pipeline",
             "repro_torch.runtime.elastic", "repro_torch.runtime.straggler",
             "repro_torch.launch.train", "repro_torch.launch.steps",
@@ -529,6 +529,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.tenancy.admission", "repro_torch.exp.runner",
             "repro_torch.exp.results", "repro_torch.exp.compare",
             "repro_torch.configs.cloudcoaster", "repro_torch.launch.sim"} <= names
+    # the serving fleet, its launcher and its example
+    assert {"repro_torch.runtime.serving", "repro_torch.launch.serve",
+            "repro_torch.examples.serve_bursty"} <= names
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

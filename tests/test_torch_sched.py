@@ -3,7 +3,8 @@ scenarios, workload synthesis and experiment API) held against the JAX
 package's, on the CPU.
 
 Most of these modules are copies: each must equal its reference file but
-for the import prefix. The DES is numpy on the host in both packages, so
+for the import prefix (``sched/scenarios.py`` also for the fluid engine it
+imports). The DES is numpy on the host in both packages, so
 on every preset at a small scale (150 servers, 2 h, as tests/test_exp.py)
 its metrics must be byte-identical as JSON and its series and event streams
 equal. The fluid controller's torch form must equal the JAX form bit for
@@ -63,7 +64,17 @@ COPIES = (
     "traces/__init__.py", "traces/synthetic.py",
     "configs/cloudcoaster.py",
     "exp/__init__.py", "exp/results.py",
+    "runtime/serving.py",
 )
+
+#: copies with edits beyond the prefix: (reference text, port text) pairs,
+#: each found exactly once
+EDITED_COPIES = {
+    "sched/scenarios.py": (
+        ("JAX fluid simulator", "torch fluid simulator"),
+        ("repro_torch.core.simjax import", "repro_torch.core.simtorch import"),
+    ),
+}
 
 #: the reference's sha256 pins of the shim's traces (tests/test_workload.py)
 SHIM_HASHES = {
@@ -103,11 +114,15 @@ def _metrics_json(rr):
 
 # ------------------------------------------------------------------ copies
 
-@pytest.mark.parametrize("rel", COPIES)
+@pytest.mark.parametrize("rel", COPIES + tuple(EDITED_COPIES))
 def test_copy_equals_reference_but_for_the_prefix(rel):
     ref = (SRC / "repro" / rel).read_text()
     port = (SRC / "repro_torch" / rel).read_text()
-    assert port == re.sub(r"\brepro\.", "repro_torch.", ref)
+    want = re.sub(r"\brepro\.", "repro_torch.", ref)
+    for old, new in EDITED_COPIES.get(rel, ()):
+        assert want.count(old) == 1, (rel, old)
+        want = want.replace(old, new)
+    assert port == want
 
 
 @pytest.mark.parametrize("name", rsched.scenario_names())
@@ -120,7 +135,20 @@ def test_scenario_preset_equals_reference(name):
 
 
 def test_port_scenario_has_no_serving_config_and_arrivals_no_jax_half():
-    assert not hasattr(tsched.Scenario, "serving_config")
+    """Named for the state before the serving fleet was ported: the port's
+    ``Scenario.serving_config`` now resolves every ``serve_*`` preset to the
+    reference's fleet config (field for field, with and without a
+    serving-only override), while the arrivals' JAX half stays absent."""
+    serve = [n for n in rsched.scenario_names() if n.startswith("serve_")]
+    assert len(serve) == 7
+    for name in serve:
+        for quick in (True, False):
+            for over in ({}, {"max_slots": 2, "threshold": 0.6}):
+                port = tsched.get_scenario(name).serving_config(
+                    quick=quick, sim_overrides=dict(over))
+                ref = rsched.get_scenario(name).serving_config(
+                    quick=quick, sim_overrides=dict(over))
+                assert astuple(port) == astuple(ref), (name, quick, over)
     assert not hasattr(twork, "batch_sample_counts")
     assert not hasattr(twork, "sample_counts_jax")
     for cls in (twork.Poisson, twork.MMPP, twork.Diurnal, twork.FlashCrowd,
@@ -285,6 +313,11 @@ def test_launcher_des_writes_reference_metrics(tmp_path, monkeypatch):
 # ------------------------------------------------------------------- lint
 
 def test_port_passes_the_reference_linter():
+    from repro.analysis.core import LintContext
+
+    scanned = {sf.rel for sf in LintContext.from_root(SRC / "repro_torch").files}
+    assert {"runtime/serving.py", "examples/serve_bursty.py", "exp/runner.py",
+            "launch/serve.py", "launch/sim.py", "core/engine.py"} <= scanned
     out = subprocess.run(
         [sys.executable, "-m", "repro.analysis.lint", "--root",
          str(SRC / "repro_torch"), "--rules", "determinism,obs-hygiene"],
