@@ -112,6 +112,30 @@ checkout of the repository. Phases (none catches its own failure):
    peak memory and the card go on a ``serving_fleet`` line before the
    kernel table; (b)'s launches join the table's counts. The phase must end
    within 120 s.
+9. serving_torch — the serving fleet as one device program
+   (``repro_torch.runtime.serving_torch``, the ``serving_torch`` engine):
+   one thread block a lane, the whole horizon in one launch of
+   ``csrc/serving_fleet.cu``. (a) The kernel against its plain version on
+   the chip machine's CPU (one torch thread), every output array and every
+   metric bit for bit: the three deterministic cases of tests/test_obs.py,
+   a seeded random workload with a pin window, and quick-scale
+   serve_batched_yahoo, serve_spot (revocations, spot pricing) and
+   serve_tenant_trio (tenant credits) at sim_seed 0. Then, counts zeroed
+   just before and read just after: (b) ``exp.run`` of serve_batched_yahoo
+   at the paper's scale (80 on-demand + 120 transient replicas, 4 slots,
+   20,000 requests, 36,531 ticks), its metrics, fleet spec and the sha256
+   of its per-tick event counts equal to the JAX package's serving_jax run
+   (``SERVE_TORCH_GOLDEN*``, held to a fresh reference run by
+   tests/test_torch_serving_torch.py); (c) ``exp.sweep`` of the (threshold
+   x max_transient x max_slots) cube, 27 points x 2 sim_seeds, 54 lanes in
+   one launch; (d) ``launch.sim --scenario serve_batched_yahoo --engine
+   serving_torch``, its metrics equal to ``exp.run``'s: 4 launches, no
+   plain call. Two of the cube's lanes are then held bitwise to their
+   single-point runs. Times, us a tick, the host fleet's paper-scale time
+   from phase 8 and the card go on a ``serving_torch`` line before the
+   kernel table, which gets the ``serving_fleet`` row (its ms and plain_ms
+   are the quick serve_batched_yahoo program on the card and on the CPU).
+   The phase must end within 60 s.
 
 ``--jamba-grad-study SEED [SEED ...]`` builds the kernels and runs only
 ``jamba_grad_phase`` for each seed, printing how far each mixer leaf lies
@@ -132,8 +156,9 @@ TF32 is off throughout (``allow_tf32 = False`` for matmul and cuDNN). Every
 phase releases what it allocated; the script checks that less than 1 GB is
 left allocated before each model phase, so the 80 GB card holds one
 phase's peak at a time. The last lines are the fleet summary (JSON), the
-serving fleet's summary (JSON), the kernel table (JSON), the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+serving fleet's summary (JSON), the serving_torch summary (JSON), the
+kernel table (JSON), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2145,6 +2170,326 @@ def serving_fleet_phase(dev, seed):
 
 
 # --------------------------------------------------------------------------
+# phase 9: serving_torch, the serving fleet as one kernel launch on the card
+
+
+SERVE_TORCH_SCENARIO = "serve_batched_yahoo"
+#: the JAX package's serving_jax run of SERVE_TORCH_SCENARIO at the paper's
+#: scale (quick=False, seed 42, sim_seed 0); the chip machine has no JAX, so
+#: tests/test_torch_serving_torch.py holds these to a fresh reference run
+SERVE_TORCH_GOLDEN = {
+    "short_avg_wait_s": 3.05525, "short_max_wait_s": 302.0, "short_p50_wait_s": 0.0,
+    "short_p90_wait_s": 0.0, "short_p99_wait_s": 81.0,
+    "avg_active_transients": 43.82779009608278, "peak_active_transients": 80.0,
+    "n_requests": 20000.0, "n_done": 20000.0, "n_unfinished": 0.0, "n_hedges": 0.0,
+    "n_hedge_cancelled": 0.0, "n_revocations": 0.0, "n_transients_used": 2095.0,
+    "avg_transient_lifetime_s": 756.7176355642404,
+    "avg_slot_occupancy": 0.12391685324406966,
+    "transient_slot_occupancy": 0.0941195917959978, "n_queue_overflow": 0.0,
+    "n_throttled": 0.0}
+SERVE_TORCH_GOLDEN_EVENTS = "3666acc7d5140de1f8898aa6c7bcf7f5949b79b65f06f5768bbd7fa75d5575f9"
+SERVE_TORCH_PAPER_SPEC = {
+    "n_ondemand": 80, "transient_cap": 120, "slot_cap": 4, "queue_cap": 16384,
+    "route_cap": 256, "horizon": 36531, "n_requests": 32768, "pipe_len": 30,
+    "probe_d": 2, "probe_retries": 3, "flush_cap": 128, "admit_window": 8,
+    "hedge_scan": 8, "hedge_cap": 16, "lifetime_cap": 4096, "drain_code": 0,
+    "spot_pricing": False, "n_tenants": 1}
+#: run (a): the quick presets held bit for bit to the plain version
+SERVE_TORCH_QUICK = ("serve_batched_yahoo", "serve_spot", "serve_tenant_trio")
+#: run (c): the (threshold x max_transient x max_slots) cube x sim_seeds
+SERVE_TORCH_CUBE = {"threshold": [0.25, 0.5, 0.75], "max_transient": [60, 120, 180],
+                    "max_slots": [1, 2, 4]}
+SERVE_TORCH_CUBE_SEEDS = (0, 1)
+SERVE_TORCH_CUBE_LANES = (5, 40)   # lanes held to their single-point runs
+SERVE_TORCH_BUDGET_S = 60.0
+FLEET_TIMED_CALLS = 3              # event-timed launches of the fleet kernel at a shape
+
+
+def event_counts_sha256(event_counts):
+    """sha256 of a run's per-tick event counts as C-ordered int64."""
+    import hashlib
+
+    import numpy as np
+
+    ev = np.ascontiguousarray(np.asarray(event_counts).astype(np.int64))
+    return hashlib.sha256(ev.tobytes()).hexdigest()
+
+
+def fleet_bound_bytes(spec, lanes=1):
+    """Bytes the serving-fleet kernel must move at least, each input read
+    once and each output written once, as ``serving_fleet_fwd`` lays them
+    out: the shared request stream and per-tick arrays, each lane's
+    parameters and key, and each lane's outputs (the per-tick series, the
+    per-request start, finish and hedge flag, the lifetimes, the counters,
+    the final replica and credit state). A lane's hot state (flags, queue
+    heads, slots, pipe, credits) stays in shared memory for the whole run,
+    and its queues, reroute ring and routing ticks are scratch in global
+    memory: the function need not move either, so neither counts."""
+    from repro_torch.kernels.serving_fleet.kernel import COUNTERS
+
+    R, N, T, NT = spec.n_replicas, spec.n_requests, spec.horizon, spec.n_tenants
+    consts = 4 * (3 * N + 3 * T)
+    params = 4 * (6 + 2 * NT) + 8
+    outputs = (9 * N + 4 * T * (16 + 2 * NT) + 4 * spec.lifetime_cap
+               + 4 * len(COUNTERS) + 5 * R + 4 * NT)
+    return consts + lanes * (params + outputs)
+
+
+def fleet_kernel_ms(fn, n):
+    """Mean device time of the serving-fleet kernel over ``n`` calls of
+    ``fn`` (after one warm call), each of which must launch it once: CUDA
+    events recorded by the wrapper just around each launch
+    (``kernel.LAUNCH_EVENTS``). torch.profiler dropped one of three
+    records of this kernel in most profiles taken on an H100, so
+    ``kernel_device_ms``'s check would not hold here."""
+    import torch
+
+    from repro_torch.kernels.serving_fleet import kernel
+
+    fn()
+    kernel.LAUNCH_EVENTS = events = []
+    try:
+        for _ in range(n):
+            fn()
+    finally:
+        kernel.LAUNCH_EVENTS = None
+    torch.cuda.synchronize()
+    if len(events) != n:
+        raise AssertionError(f"{n} calls launched the serving-fleet kernel {len(events)} "
+                             f"times")
+    return sum(a.elapsed_time(b) for a, b in events) / n
+
+
+def _fleet_point(name, quick, seed, sim_seed):
+    """The program inputs of one ``serving_torch`` point, as ``exp.run``
+    builds them: (cfg, spec, consts, params, key, requests, pinning)."""
+    import numpy as np
+
+    from repro_torch.exp.runner import _serving_torch_setup
+    from repro_torch.runtime import serving_torch as st
+    from repro_torch.sched import get_scenario
+
+    sc = get_scenario(name)
+    (_, cfg, requests, max_ticks, wl_meta, spot, (n_t, rate, burst)) = _serving_torch_setup(
+        sc, quick=quick, seed=seed, trace=None, trace_overrides={}, sim_overrides={})
+    pin = wl_meta["pinned_per_tick"]
+    spec = st.make_spec(cfg, n_requests=len(requests), max_ticks=max_ticks,
+                        max_arrivals_per_tick=int(np.bincount(
+                            [q.arrival for q in requests]).max()),
+                        drain_preference=sc.drain_preference, spot_pricing=spot,
+                        n_tenants=n_t)
+    consts = st.build_consts(spec, requests, pin)
+    params = st.make_params(cfg, n_tenants=n_t, credit_rate=rate, credit_burst=burst)
+    return cfg, spec, consts, params, st._seed_key(sim_seed), requests, pin
+
+
+def _fleet_equal(what, got, ref):
+    """Every output array of the card's program equal to the plain one's."""
+    import numpy as np
+
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"serving_torch {what}: outputs {sorted(got)} vs {sorted(ref)}")
+    for k, v in ref.items():
+        g = np.asarray(got[k])
+        if g.dtype != v.dtype or g.shape != v.shape or not np.array_equal(g, v):
+            bad = np.argwhere(g != v)[:3].tolist() if g.shape == v.shape else "shape"
+            raise AssertionError(f"serving_torch {what}: {k} differs from the plain "
+                                 f"version ({g.dtype}{g.shape} vs {v.dtype}{v.shape}; "
+                                 f"first at {bad})")
+
+
+def serving_torch_phase(dev, fleet_host_s):
+    """The serving fleet as one device program (``serving_torch``): (a) the
+    kernel against the plain version on the chip machine's CPU, bit for
+    bit, (b) the paper's scale on the card against the JAX package's golden
+    values, (c) the 54-lane cube, (d) the launcher (module docstring,
+    phase 9). ``fleet_host_s`` is phase 8's host-fleet time at the paper's
+    scale. Returns the ``serving_torch`` summary, the kernel table's row
+    and the counted run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import exp
+    from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from repro_torch.kernels.serving_fleet.kernel import smem_bytes
+    from repro_torch.launch import sim as sim_launcher
+    from repro_torch.runtime import serving_torch as st
+    from repro_torch.runtime.serving import Request, ServingFleetConfig
+
+    t_phase = time.perf_counter()
+    n_threads = torch.get_num_threads()
+    summary = {"plain_device": "cpu of the chip machine, one torch thread"}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def both(what, spec, params, consts, key, cfg=None):
+        card, card_ms = timed(lambda: st.get_program(spec, device=dev)(params, consts, key))
+        torch.set_num_threads(1)
+        try:
+            plain, plain_ms = timed(lambda: st.get_program(spec, device="cpu")(
+                params, consts, key))
+        finally:
+            torch.set_num_threads(n_threads)
+        _fleet_equal(what, card, plain)
+        row = dict(ticks=spec.horizon, replicas=spec.n_replicas, card_ms=card_ms,
+                   plain_ms=plain_ms, card_us_per_tick=1e3 * card_ms / max(spec.horizon, 1))
+        if cfg is not None:
+            m_card, _ = st.summarize(spec, card, consts, cfg.tick_s)
+            m_plain, _ = st.summarize(spec, plain, consts, cfg.tick_s)
+            if json.dumps(m_card) != json.dumps(m_plain):
+                raise AssertionError(f"serving_torch {what}: metrics {m_card} vs {m_plain}")
+            row["events"] = int(card["event_counts"].sum())
+        return row
+
+    # (a) the kernel against the plain version, bit for bit
+    det = []
+    cfg1 = ServingFleetConfig(n_replicas=1, max_transient=0, threshold=0.5,
+                              provisioning_delay=3.0, tick_s=1.0)
+    cfg2 = ServingFleetConfig(n_replicas=1, max_transient=1, threshold=0.5,
+                              provisioning_delay=3.0, tick_s=1.0)
+    cfg3 = ServingFleetConfig(n_replicas=1, max_transient=1, max_slots=2, threshold=0.5,
+                              provisioning_delay=3.0)
+    six = [(0, 3), (2, 4), (6, 2), (8, 3), (12, 2), (21, 1)]
+    pin = np.zeros(40, int)
+    pin[5:20] = 1
+    det.append((cfg1, [Request(0, 0, 3), Request(1, 0, 2), Request(2, 4, 1)],
+                np.zeros(30, int), 30))
+    det.append((cfg2, [Request(i, a, g) for i, (a, g) in enumerate(six)], pin, 40))
+    det.append((cfg3, [Request(i, a, g) for i, (a, g) in enumerate(six)], pin, 40))
+    rng = np.random.default_rng(0)   # tests/test_serving_jax.py:_rand_workload(0)
+    arr = np.sort(rng.integers(0, 380, 80))
+    reqs = [Request(i, int(arr[i]), int(rng.integers(1, 6))) for i in range(80)]
+    rpin = np.zeros(400, int)
+    rpin[50:150] = int(rng.integers(1, 3))
+    rpin[300:] = 2
+    det.append((ServingFleetConfig(n_replicas=2, max_transient=2, threshold=0.5,
+                                   provisioning_delay=3.0, tick_s=1.0), reqs, rpin, 400))
+    summary["small"] = []
+    for i, (cfg, reqs, pin_i, T) in enumerate(det):
+        spec = st.make_spec(cfg, n_requests=len(reqs), max_ticks=T,
+                            max_arrivals_per_tick=int(np.bincount(
+                                [q.arrival for q in reqs]).max()))
+        consts = st.build_consts(spec, reqs, pin_i)
+        summary["small"].append(both(f"case {i}", spec, st.make_params(cfg), consts,
+                                     st._seed_key(0), cfg))
+    summary["quick"], quick_specs = {}, {}
+    for name in SERVE_TORCH_QUICK:
+        cfg, spec, consts, params, key, _, _ = _fleet_point(name, True, 42, 0)
+        row = both(name, spec, params, consts, key, cfg)
+        row["smem_bytes"] = smem_bytes(spec)
+        row["bound_ms"] = bound(fleet_bound_bytes(spec), 0, "float32")["bound_ms"]
+        if name == SERVE_TORCH_SCENARIO:
+            row["device_ms"] = fleet_kernel_ms(
+                lambda: st.get_program(spec, device=dev)(params, consts, key),
+                FLEET_TIMED_CALLS)
+        summary["quick"][name], quick_specs[name] = row, spec
+        log(f"  serving_torch (a) {name} quick, kernel vs plain bitwise: {json.dumps(row)}")
+    a_s = time.perf_counter() - t_phase
+
+    # the counted run: (b) the paper's scale, (c) the cube, (d) the launcher
+    reset_counts()
+    torch.cuda.synchronize()
+    paper, ms_b = timed(lambda: exp.run(SERVE_TORCH_SCENARIO, "serving_torch", quick=False,
+                                        seed=42, sim_seed=0, device=dev))
+    if (json.dumps(paper.metrics) != json.dumps(SERVE_TORCH_GOLDEN)
+            or event_counts_sha256(paper.series["event_counts"]) != SERVE_TORCH_GOLDEN_EVENTS
+            or paper.meta["fleet_spec"] != SERVE_TORCH_PAPER_SPEC):
+        raise AssertionError(f"serving_torch (b) paper scale: {paper.metrics} / "
+                             f"{event_counts_sha256(paper.series['event_counts'])} are not "
+                             f"the JAX package's golden values")
+    obs = paper.meta["obs"]
+    ticks = paper.meta["workload"]["max_ticks"]
+    summary["paper"] = dict(
+        replicas=SERVE_TORCH_PAPER_SPEC["n_ondemand"] + SERVE_TORCH_PAPER_SPEC[
+            "transient_cap"], requests=paper.meta["workload"]["n_requests"], ticks=ticks,
+        wall_ms=ms_b, kernel_call_ms=1e3 * obs["exec_s"],
+        us_per_tick=1e6 * obs["exec_s"] / ticks, host_fleet_s=fleet_host_s,
+        host_fleet_over_wall=1e3 * fleet_host_s / ms_b,
+        bound_ms=bound(fleet_bound_bytes(st.FleetSpec(**SERVE_TORCH_PAPER_SPEC)), 0,
+                       "float32")["bound_ms"],
+        golden="equal", metrics=paper.metrics)
+    log(f"  serving_torch (b) paper scale on the card: {json.dumps(summary['paper'])}")
+
+    sweep, ms_c = timed(lambda: exp.sweep(
+        SERVE_TORCH_SCENARIO, SERVE_TORCH_CUBE, engine="serving_torch", quick=False,
+        seed=42, sim_seeds=SERVE_TORCH_CUBE_SEEDS, device=dev))
+    n_lanes = int(np.prod(sweep.shape)) * len(SERVE_TORCH_CUBE_SEEDS)
+    cube_obs = sweep.meta["obs"]
+    best = sweep.best("short_avg_wait_s")
+    summary["cube"] = dict(lanes=n_lanes, shape=list(sweep.shape), wall_ms=ms_c,
+                           kernel_call_ms=1e3 * cube_obs["exec_s"],
+                           points_per_s=n_lanes / cube_obs["exec_s"],
+                           us_per_tick_lane=1e6 * cube_obs["exec_s"] / ticks / n_lanes,
+                           best=best)
+    log(f"  serving_torch (c) cube: {json.dumps(summary['cube'], default=float)}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = pathlib.Path(tmp) / "serve_batched_yahoo.runresult.json"
+        _, ms_d = timed(lambda: sim_launcher.main(
+            ["--scenario", SERVE_TORCH_SCENARIO, "--engine", "serving_torch",
+             "--out", str(out_path)]))
+        launched = json.loads(out_path.read_text())
+    direct = exp.run(SERVE_TORCH_SCENARIO, "serving_torch", quick=False, seed=42,
+                     sim_seed=42, device=dev)
+    if launched["metrics"] != direct.metrics:
+        raise AssertionError(f"serving_torch (d) launcher: {launched['metrics']} is not "
+                             f"exp.run's {direct.metrics}")
+    torch.cuda.synchronize()
+    counts, plain_calls = dict(LAUNCHES), dict(PLAIN_CALLS)
+    if counts["serving_fleet"] != 4 or sum(plain_calls.values()):
+        raise AssertionError(f"serving_torch: launches {counts}, plain calls {plain_calls}; "
+                             f"want 4 serving_fleet launches ((b), (c), (d) twice), no plain")
+    summary["launcher"] = dict(wall_ms=ms_d, run_wall_s=launched["wall_time_s"])
+    log(f"  serving_torch (d) launch.sim: {json.dumps(summary['launcher'])}")
+
+    # the cube's lanes against their single-point runs (uncounted)
+    cfg, _, _, _, _, requests, pin = _fleet_point(SERVE_TORCH_SCENARIO, False, 42, 0)
+    grid = [(s, t, k, m) for s in SERVE_TORCH_CUBE_SEEDS
+            for t in np.asarray(SERVE_TORCH_CUBE["threshold"], np.float32)
+            for k in SERVE_TORCH_CUBE["max_transient"] for m in SERVE_TORCH_CUBE["max_slots"]]
+    cube_spec = st.FleetSpec(**{**sweep.meta["fleet_spec"]})
+    cube_consts = st.build_consts(cube_spec, requests, pin)
+    params = st.cube_params(cfg, grid)
+    keys = np.stack([st._seed_key(g[0]) for g in grid])
+    cube = st.get_program(cube_spec, batch="map", device=dev)(params, cube_consts, keys)
+    for lane in SERVE_TORCH_CUBE_LANES:
+        one = st.get_program(cube_spec, device=dev)(
+            {k: v[lane] for k, v in params.items()}, cube_consts, keys[lane])
+        _fleet_equal(f"cube lane {lane} vs its single point",
+                     {k: v[lane] for k, v in cube.items()}, one)
+    summary["cube"]["lanes_checked"] = list(SERVE_TORCH_CUBE_LANES)
+    summary["cube"]["bound_ms"] = bound(fleet_bound_bytes(cube_spec, n_lanes), 0,
+                                        "float32")["bound_ms"]
+    # the paper-scale kernel alone (uncounted): the launch's device time,
+    # without the program call's uploads, allocations and host copies
+    _, spec_b, consts_b, params_b, key_b, _, _ = _fleet_point(
+        SERVE_TORCH_SCENARIO, False, 42, 0)
+    summary["paper"]["device_ms"] = fleet_kernel_ms(
+        lambda: st.get_program(spec_b, device=dev)(params_b, consts_b, key_b),
+        FLEET_TIMED_CALLS)
+    summary["paper"]["device_over_bound"] = (summary["paper"]["device_ms"]
+                                             / summary["paper"]["bound_ms"])
+    summary["launches"] = counts["serving_fleet"]
+    summary["a_s"] = a_s
+    summary["phase_s"] = time.perf_counter() - t_phase
+    if summary["phase_s"] > SERVE_TORCH_BUDGET_S:
+        raise AssertionError(f"serving_torch phase took {summary['phase_s']:.1f} s, over "
+                             f"its {SERVE_TORCH_BUDGET_S} s budget")
+    q, quick_spec = summary["quick"][SERVE_TORCH_SCENARIO], quick_specs[SERVE_TORCH_SCENARIO]
+    row = dict(max_abs_err=0, ms=q["device_ms"], plain_ms=q["plain_ms"],
+               plain_device=summary["plain_device"], library_ms=None,
+               shape=f"{SERVE_TORCH_SCENARIO} quick: {quick_spec.n_replicas} replicas x "
+                     f"{quick_spec.slot_cap} slots, {quick_spec.horizon} ticks, 1 lane",
+               **bound(fleet_bound_bytes(quick_spec), 0, "float32"))
+    return summary, row, counts
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -2227,6 +2572,11 @@ def main(argv=None):
     by_path["serving_fleet"] = dict(more)
     for name, n in more.items():
         launches[name] += n
+    serving_torch, rows["serving_fleet"], more = serving_torch_phase(
+        dev, serving_fleet["paper"]["wall_s"])
+    by_path["serving_torch"] = dict(more)
+    for name, n in more.items():
+        launches[name] += n
 
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2243,6 +2593,8 @@ def main(argv=None):
                      "src/repro/kernels/ssm_scan/kernel.py:62"),
         "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan.cu",
                          "src/repro/kernels/ssm_scan/kernel.py:180"),
+        "serving_fleet": ("src/repro_torch/csrc/serving_fleet.cu",
+                          "src/repro/runtime/serving_jax.py:222 (_simulate, XLA; no Pallas)"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -2255,17 +2607,21 @@ def main(argv=None):
             "shape": r["shape"],
             "launches_by_path": {path: n[name] for path, n in by_path.items()},
             **{k: v for k, v in r.items()
-               if k.startswith(("decode_", "train_", "jamba_", "event_", "device_"))}})
+               if k.startswith(("decode_", "train_", "jamba_", "event_", "device_",
+                                "plain_device"))}})
     log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; f32 gradient "
         f"check passed: rwkv6-3b worst {worst_grad:.3e} <= {LOGIT_RTOL}, full depth "
         f"{depth_ratio:.3f} <= 1 of its limit; jamba block in place "
         f"{jamba_in_place:.3e} <= {LOGIT_RTOL}, every mixer leaf {jamba_leaves:.3e} <= "
         f"{LOGIT_RTOL}; fleet card vs CPU within {FLEET_RTOL} in "
         f"{fleet['phase_s']:.1f} s; serving fleet with and without the model equal "
-        f"in {serving_fleet['phase_s']:.1f} s; total "
+        f"in {serving_fleet['phase_s']:.1f} s; serving_torch kernel bitwise equal to "
+        f"the plain version and the JAX package's golden values in "
+        f"{serving_torch['phase_s']:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"fleet": {**fleet, "card": smi}}))
     print(json.dumps({"serving_fleet": {**serving_fleet, "card": smi}}, default=float))
+    print(json.dumps({"serving_torch": {**serving_torch, "card": smi}}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

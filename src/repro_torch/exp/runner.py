@@ -5,14 +5,16 @@ Engines are pluggable adapters registered in this package's own registry
 (``des`` — the exact discrete-event simulator, ``fluid`` — the slotted
 fluid model as a torch program, on ``cuda`` unless ``device="cpu"``,
 ``serving`` — the pod-level elastic serving fleet driven by the same trace
-builders, on the host); they take the same call signature and emit the
-same :class:`~repro_torch.exp.results.RunResult` schema, so a consumer can
-flip engines with one string.  ``sweep`` fans a scenario out over a
-parameter grid: serial (optionally multiprocess) DES or serving runs per
-grid point, or the (replace_fraction x threshold x max_transient) fluid
-cube as one lane axis of one torch program — same signature, results
-addressable by grid point either way.  The JAX package's ``serving_jax``
-engine (the fleet as one device program) has no counterpart here yet.
+builders, on the host, ``serving_torch`` — the same fleet as one device
+program, the port of the JAX package's ``serving_jax``, on ``cuda`` unless
+``device="cpu"``); they take the same call signature and emit the same
+:class:`~repro_torch.exp.results.RunResult` schema, so a consumer can flip
+engines with one string.  ``sweep`` fans a scenario out over a parameter
+grid: serial (optionally multiprocess) DES or serving runs per grid point,
+or a single-program cube for the array engines (the (replace_fraction x
+threshold x max_transient) fluid cube, the (threshold x max_transient x
+max_slots) cube for ``serving_torch``), each one lane axis — same
+signature, results addressable by grid point either way.
 
 Register a new engine adapter::
 
@@ -36,14 +38,15 @@ import itertools
 import json
 import pathlib
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from repro_torch.exp.results import (RunResult, _jsonable, _load_npz,
                                      _save_npz, from_fluid_output,
-                                     from_serving_fleet, from_sim_result)
+                                     from_serving_fleet, from_serving_jax,
+                                     from_sim_result)
 from repro_torch.sched import Scenario, get_scenario
 
 # --------------------------------------------------------- declarative overrides
@@ -280,9 +283,73 @@ def _run_serving(sc: Scenario, *, quick: bool, seed: int, sim_seed: int,
         recorder=recorder)
 
 
+def _serving_torch_setup(sc: Scenario, *, quick: bool, seed: int, trace,
+                         trace_overrides: Dict, sim_overrides: Dict):
+    """Shared trace -> (cfg, requests, pinning, wl_meta, spot, tenancy)
+    prologue for the serving_torch run and sweep paths (the reference's
+    ``_serving_jax_setup``).  The tenancy triple is ``(n_tenants,
+    credit_rate, credit_burst)``: tenant count from the trace meta (a static
+    shape), token-bucket vectors in tick units from the scenario's
+    ``tenant_guard`` policy (``None`` — an inert gate — under any other
+    policy)."""
+    from repro_torch.runtime.serving import build_serving_workload
+
+    if trace is None:
+        trace = sc.trace(quick=quick, seed=seed,
+                         trace_overrides=trace_overrides)
+    cfg = sc.serving_config(quick=quick, sim_overrides=sim_overrides)
+    requests, _, max_ticks, wl_meta = build_serving_workload(trace, cfg)
+    _, short_pol = sc.policies()
+    spot = getattr(short_pol, "name", "") == "spot_aware"
+    t_names = (trace.meta or {}).get("tenants")
+    n_tenants = len(t_names) if t_names else 1
+    credit_rate = credit_burst = None
+    if n_tenants > 1 and getattr(short_pol, "name", "") == "tenant_guard":
+        buckets = short_pol.credits.buckets
+        credit_rate = [b.rate for b in buckets]
+        credit_burst = [b.burst / cfg.tick_s for b in buckets]
+    return (trace, cfg, requests, max_ticks, wl_meta, spot,
+            (n_tenants, credit_rate, credit_burst))
+
+
+def _run_serving_torch(sc: Scenario, *, quick: bool, seed: int,
+                       sim_seed: int, trace, trace_overrides: Dict,
+                       sim_overrides: Dict, queue_cap: Optional[int] = None,
+                       device=None) -> RunResult:
+    """The serving fleet as one device program
+    (``repro_torch.runtime.serving_torch``) on ``device`` (``cuda`` unless
+    the caller passes ``"cpu"``): the same trace -> request-stream/pinning
+    mapping as ``serving``, one kernel launch for the whole horizon on the
+    card.  Its draws are the reference ``serving_jax`` engine's, so a run
+    equals that engine's bit for bit; the result carries the same series,
+    ``meta["fleet_spec"]`` and ``meta["obs"]``, under the engine tag
+    ``serving_torch``."""
+    from repro_torch.runtime import serving_torch
+
+    t0 = time.perf_counter()
+    (trace, cfg, requests, max_ticks, wl_meta, spot,
+     (n_tenants, credit_rate, credit_burst)) = _serving_torch_setup(
+        sc, quick=quick, seed=seed, trace=trace,
+        trace_overrides=trace_overrides, sim_overrides=sim_overrides)
+    metrics, series, spec = serving_torch.run_workload(
+        cfg, requests, wl_meta["pinned_per_tick"], max_ticks,
+        drain_preference=sc.drain_preference, spot_pricing=spot,
+        sim_seed=sim_seed, queue_cap=queue_cap, n_tenants=n_tenants,
+        credit_rate=credit_rate, credit_burst=credit_burst, device=device)
+    rr = from_serving_jax(
+        metrics, series, scenario=sc.name, config=cfg, spec=spec,
+        workload_meta=wl_meta,
+        overrides={"trace": trace_overrides, "sim": sim_overrides},
+        quick=quick, seed=seed, sim_seed=sim_seed,
+        wall_time_s=time.perf_counter() - t0, trace=trace,
+        obs=serving_torch.last_run_obs())
+    return replace(rr, engine="serving_torch")
+
+
 register_engine("des", _run_des)
 register_engine("fluid", _run_fluid)
 register_engine("serving", _run_serving)
+register_engine("serving_torch", _run_serving_torch)
 
 
 # ---------------------------------------------------------------- grid sweeps
@@ -420,6 +487,12 @@ def sweep(scenario: Union[str, Scenario], grid: Dict[str, Sequence],
         return _sweep_fluid(sc, grid, quick=quick, seed=seed, trace=trace,
                             trace_overrides=trace_overrides,
                             sim_overrides=sim_overrides, **engine_kwargs)
+    if engine == "serving_torch" and set(grid) <= set(_SERVING_TORCH_AXES):
+        return _sweep_serving_torch(sc, grid, quick=quick, seed=seed,
+                                    sim_seed=sim_seed, trace=trace,
+                                    trace_overrides=trace_overrides,
+                                    sim_overrides=sim_overrides,
+                                    **engine_kwargs)
     return _sweep_pointwise(sc, grid, engine, quick=quick, seed=seed,
                             sim_seed=sim_seed, trace=trace,
                             trace_overrides=trace_overrides,
@@ -472,6 +545,67 @@ def _sweep_fluid(sc: Scenario, grid: Dict[str, Sequence], *, quick: bool,
     return SweepResult(
         engine="fluid", scenario=sc.name, axes=axes, metrics=metrics,
         meta={"quick": quick, "seed": seed, "dt": dt,
+              "n_points": int(np.prod([len(v) for v in axes.values()])),
+              "wall_time_s": time.perf_counter() - t0})
+
+
+#: sweep axes the serving_torch cube evaluates as one device program; any
+#: other axis set falls back to the pointwise fan-out
+_SERVING_TORCH_AXES = ("threshold", "max_transient", "max_slots")
+
+
+def _sweep_serving_torch(sc: Scenario, grid: Dict[str, Sequence], *,
+                         quick: bool, seed: int, sim_seed: int, trace,
+                         trace_overrides: Optional[Dict],
+                         sim_overrides: Optional[Dict],
+                         sim_seeds: Optional[Sequence[int]] = None,
+                         queue_cap: Optional[int] = None,
+                         batch: str = "map", device=None) -> SweepResult:
+    """The (threshold x max_transient x max_slots) serving cube as one
+    device program (``serving_torch.sweep_cube``, one lane a grid point and
+    seed): one trace, every grid point through the same program.
+    ``sim_seeds`` averages the grid over several engine seeds (default:
+    just ``sim_seed``); missing cube axes are pinned to the scenario's value
+    and dropped from the result dims, mirroring the fluid sweep."""
+    from repro_torch.runtime import serving_torch
+
+    t0 = time.perf_counter()
+    # the cube sweeps fleet knobs, not tenancy — the tenancy triple is
+    # dropped (credit-budget sweeps go through the pointwise path)
+    trace, cfg, requests, max_ticks, wl_meta, spot, _ = _serving_torch_setup(
+        sc, quick=quick, seed=seed, trace=trace,
+        trace_overrides=dict(trace_overrides or {}),
+        sim_overrides=dict(sim_overrides or {}))
+    seeds = tuple(sim_seeds) if sim_seeds is not None else (sim_seed,)
+    full_axes = {
+        "threshold": np.asarray(grid.get("threshold", [cfg.threshold]),
+                                float),
+        "max_transient": np.asarray(grid.get("max_transient",
+                                             [cfg.max_transient]), float),
+        "max_slots": np.asarray(grid.get("max_slots", [cfg.max_slots]),
+                                float),
+    }
+    grids, spec = serving_torch.sweep_cube(
+        cfg, requests, wl_meta["pinned_per_tick"], max_ticks,
+        thresholds=full_axes["threshold"],
+        max_transients=full_axes["max_transient"].astype(int),
+        max_slots_values=full_axes["max_slots"].astype(int),
+        sim_seeds=seeds, drain_preference=sc.drain_preference,
+        spot_pricing=spot, queue_cap=queue_cap, batch=batch, device=device)
+    keep = [i for i, name in enumerate(full_axes) if name in grid]
+    axes = {name: full_axes[name] for name in full_axes if name in grid}
+    metrics = {}
+    for k, v in grids.items():
+        arr = np.asarray(v)
+        for i in reversed(range(arr.ndim)):
+            if i not in keep:
+                arr = arr.take(0, axis=i)
+        metrics[k] = arr
+    return SweepResult(
+        engine="serving_torch", scenario=sc.name, axes=axes, metrics=metrics,
+        meta={"quick": quick, "seed": seed, "sim_seeds": list(seeds),
+              "batch": batch, "fleet_spec": _jsonable(spec),
+              "obs": _jsonable(serving_torch.last_run_obs()),
               "n_points": int(np.prod([len(v) for v in axes.values()])),
               "wall_time_s": time.perf_counter() - t0})
 

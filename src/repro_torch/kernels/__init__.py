@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels for Hopper, one per Pallas kernel of the
-reference on the ported path.
+reference on the ported path, and one for the serving fleet's simulator
+(``serving_fleet``: the reference runs it as an XLA program, with no
+Pallas kernel).
 
 Each kernel ships three files, as in ``repro.kernels``:
   kernel.py — the launch wrapper around the CUDA C++ source in ``csrc/``
@@ -23,7 +25,8 @@ from __future__ import annotations
 from typing import Dict
 
 KERNEL_NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
-                "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan", "ssm_scan_bwd")
+                "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan", "ssm_scan_bwd",
+                "serving_fleet")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 # plus the model-level plain attention (``models.attention.plain=True``)

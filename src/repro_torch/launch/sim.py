@@ -13,9 +13,12 @@ the override flags are generated from the declarative
       --engine fluid --device cpu
   PYTHONPATH=src python -m repro_torch.launch.sim --scenario serve_yahoo --quick \
       --engine serving --trace-out serve_yahoo.trace.json
+  PYTHONPATH=src python -m repro_torch.launch.sim --scenario serve_batched_yahoo \
+      --engine serving_torch --device cpu
 
 The DES and the serving fleet run on the host and need no card. The fluid
-engine runs on ``--device`` (default ``cuda``, which raises without a card).
+engine and ``serving_torch`` (the serving fleet as one device program) run
+on ``--device`` (default ``cuda``, which raises without a card).
 
 ``--out`` persists the full :class:`~repro_torch.exp.RunResult` — time series
 included (per-task waits for the DES, the per-slot fluid trajectories that
@@ -49,13 +52,15 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="CI-sized scale (400 servers / 4 h)")
     ap.add_argument("--engine", default=None,
-                    choices=["des", "fluid", "serving"],
+                    choices=["des", "fluid", "serving", "serving_torch"],
                     help="engine adapter (default des; 'serving' runs the "
-                         "pod-level elastic serving fleet)")
+                         "pod-level elastic serving fleet, 'serving_torch' "
+                         "the same fleet as one device program)")
     ap.add_argument("--fluid", action="store_true",
                     help="alias for --engine fluid")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the fluid engine (cuda or cpu)")
+                    help="torch device of the fluid and serving_torch engines "
+                         "(cuda or cpu)")
     ap.add_argument("--out", default=None, metavar="FILE",
                     help="persist the full RunResult (series included) "
                          "as npz, or JSON with a .json suffix")
@@ -89,7 +94,8 @@ def main(argv=None):
     print(f"scenario: {sc.name} | trace: jobs={tr.n_jobs} tasks={tr.n_tasks} "
           f"util={tr.meta['utilization']:.3f}")
     engine = args.engine or ("fluid" if args.fluid else "des")
-    engine_kwargs = dict(device=args.device) if engine == "fluid" else {}
+    engine_kwargs = (dict(device=args.device)
+                     if engine in ("fluid", "serving_torch") else {})
     tracer = None
     if args.trace_out and engine == "serving":
         from repro_torch.obs import Tracer

@@ -43,6 +43,17 @@ LAYOUTS = {"dense": dict(kv_layout="dense"), "paged": dict(kv_layout="paged"),
 _CACHE = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Run this module's torch ops on one thread, as tests/test_torch_mamba.py
+    does: with other test processes on every core, torch's intra-op pool
+    waits at each small eager op for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _prompts(vocab, shapes=SHAPES, seed=42):
     rng = np.random.default_rng(seed)
     return [(rng.integers(1, vocab, p).astype(np.int32), m) for p, m in shapes]

@@ -1038,3 +1038,87 @@ def test_serving_fleet_decodes_through_the_kernels(cuda):
     assert launches["paged_decode_attention"] == b.step_count * n_attn
     assert launches["flash_attention"] == len(stats["requests"]) * n_attn
     assert sum(plain.values()) == 0, plain
+
+
+# -------------------------------------------------------- serving fleet
+#
+# The serving-fleet kernel (one thread block a lane, the whole horizon in
+# one launch) against its plain version on the CPU, bit for bit, on random
+# workloads of the shape of tests/test_serving_jax.py:_rand_workload: lane
+# counts 1, 7 and 54 over a (threshold x budget x slots x seed) grid, with
+# revocations and spot pricing, and with three tenants' credit buckets and
+# 8-entry queues that overflow.
+
+def _fleet_lanes(kind, lanes, seed=0, n=200, T=400):
+    from repro_torch.runtime import serving_torch as st
+    from repro_torch.runtime.serving import Request, ServingFleetConfig
+
+    rng = np.random.default_rng(seed)
+    arr = np.sort(rng.integers(0, T - 20, n))
+    n_t = 3 if kind == "tenants" else 1
+    reqs = [Request(i, int(arr[i]), int(rng.integers(1, 9)), tenant_id=i % n_t)
+            for i in range(n)]
+    pin = np.zeros(T, int)
+    pin[50:350] = int(rng.integers(1, 3))
+    pin[350:T] = 3
+    cfg = ServingFleetConfig(n_replicas=3, max_transient=3, max_slots=2, threshold=0.5,
+                             provisioning_delay=3.0, tick_s=1.0,
+                             revocation_mttf=40.0 if kind == "spot" else 0.0,
+                             hedge_factor=1.0)
+    spec = st.make_spec(cfg, n_requests=n, max_ticks=T,
+                        max_arrivals_per_tick=int(np.bincount(arr).max()),
+                        spot_pricing=kind == "spot", n_tenants=n_t,
+                        queue_cap=8 if kind == "tenants" else None,
+                        drain_preference="oldest" if kind == "spot" else "least_loaded")
+    consts = st.build_consts(spec, reqs, pin)
+    grid = [(s, t, k, m) for s in (0, 1, 2) for t in (0.25, 0.5, 0.75)
+            for k in (1, 2, 3) for m in (1, 2)][:lanes]
+    params = st.cube_params(cfg, grid)
+    if kind == "tenants":
+        params["credit_rate"] = np.tile(np.float32([0.5, 0.0, 2.0]), (lanes, 1))
+        params["credit_burst"] = np.tile(np.float32([6.0, 3.0, 1e9]), (lanes, 1))
+    keys = np.stack([st._seed_key(s + 7 * seed) for s, _, _, _ in grid])
+    lanes_p = {k: torch.as_tensor(np.asarray(v)) for k, v in params.items()}
+    return spec, lanes_p, consts, torch.as_tensor(keys)
+
+
+@pytest.mark.parametrize("kind", ["plain", "spot", "tenants"])
+@pytest.mark.parametrize("lanes", [1, 7, 54])
+def test_serving_fleet_kernel_matches_plain(cuda, kind, lanes):
+    from repro_torch.kernels.serving_fleet.ops import serving_fleet
+
+    spec, params, consts, keys = _fleet_lanes(kind, lanes, seed=lanes)
+    reset_counts()
+    got = serving_fleet(spec, params, consts, (keys[:, 0].to(cuda), keys[:, 1].to(cuda)))
+    torch.cuda.synchronize()
+    assert LAUNCHES["serving_fleet"] == 1 and sum(PLAIN_CALLS.values()) == 0
+    ref = serving_fleet(spec, params, consts, (keys[:, 0], keys[:, 1]))
+    assert PLAIN_CALLS["serving_fleet"] == 1
+    assert sorted(got) == sorted(ref)
+    for k, v in ref.items():
+        g = got[k].cpu()
+        assert g.dtype == v.dtype and g.shape == v.shape, k
+        assert torch.equal(g, v), k
+    assert int(ref["event_counts"].sum()) > 0
+
+
+def test_serving_fleet_launch_events_time_each_launch_alone(cuda):
+    """``kernel.LAUNCH_EVENTS`` gets one pair of events a launch, and the
+    outputs are those of an untimed launch."""
+    from repro_torch.kernels.serving_fleet import kernel
+    from repro_torch.kernels.serving_fleet.ops import serving_fleet
+
+    spec, params, consts, keys = _fleet_lanes("plain", 7, seed=3)
+    key = (keys[:, 0].to(cuda), keys[:, 1].to(cuda))
+    plain = serving_fleet(spec, params, consts, key)
+    kernel.LAUNCH_EVENTS = events = []
+    try:
+        timed = serving_fleet(spec, params, consts, key)
+        timed_again = serving_fleet(spec, params, consts, key)
+    finally:
+        kernel.LAUNCH_EVENTS = None
+    serving_fleet(spec, params, consts, key)
+    torch.cuda.synchronize()
+    assert len(events) == 2 and all(a.elapsed_time(b) > 0 for a, b in events)
+    for k, v in plain.items():
+        assert torch.equal(timed[k], v) and torch.equal(timed_again[k], v), k

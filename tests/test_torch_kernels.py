@@ -512,7 +512,7 @@ def test_port_imports_neither_jax_nor_reference():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 89
+    assert len(names) >= 96
     assert {"repro_torch.checkpoint.checkpointer", "repro_torch.data.pipeline",
             "repro_torch.runtime.elastic", "repro_torch.runtime.straggler",
             "repro_torch.launch.train", "repro_torch.launch.steps",
@@ -532,6 +532,13 @@ def test_port_imports_neither_jax_nor_reference():
     # the serving fleet, its launcher and its example
     assert {"repro_torch.runtime.serving", "repro_torch.launch.serve",
             "repro_torch.examples.serve_bursty"} <= names
+    # the fleet as one device program: its engine, generator, kernel triple,
+    # the catalog driver and the multi-tenant example
+    assert {"repro_torch.runtime.serving_torch", "repro_torch.runtime.threefry",
+            "repro_torch.kernels.serving_fleet.ref",
+            "repro_torch.kernels.serving_fleet.ops",
+            "repro_torch.kernels.serving_fleet.kernel", "repro_torch.launch.smoke",
+            "repro_torch.examples.serve_multitenant"} <= names
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

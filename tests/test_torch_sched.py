@@ -317,11 +317,41 @@ def test_port_passes_the_reference_linter():
 
     scanned = {sf.rel for sf in LintContext.from_root(SRC / "repro_torch").files}
     assert {"runtime/serving.py", "examples/serve_bursty.py", "exp/runner.py",
-            "launch/serve.py", "launch/sim.py", "core/engine.py"} <= scanned
+            "launch/serve.py", "launch/sim.py", "core/engine.py",
+            "runtime/serving_torch.py", "kernels/serving_fleet/ref.py",
+            "launch/smoke.py", "examples/serve_multitenant.py"} <= scanned
     out = subprocess.run(
         [sys.executable, "-m", "repro.analysis.lint", "--root",
-         str(SRC / "repro_torch"), "--rules", "determinism,obs-hygiene"],
+         str(SRC / "repro_torch"), "--rules", "determinism,obs-hygiene,static-shape"],
         capture_output=True, text=True, timeout=120,
         env=dict(os.environ, PYTHONPATH=str(SRC)))
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "0 finding(s) from 2 rule(s)" in out.stdout, out.stdout
+    assert "0 finding(s) from 3 rule(s)" in out.stdout, out.stdout
+
+
+def test_serving_torch_schema_harvested_like_the_reference(monkeypatch):
+    """The reference linter's harvesters, pointed at the port's engine: the
+    traced names (``OVERRIDE_SPEC`` and ``make_params`` keys) stay out of
+    ``FleetSpec``'s fields, and the plain program stacks one event column
+    per ``EVENT_TYPES`` entry, as a run's ``event_counts`` holds."""
+    from dataclasses import fields as dc_fields
+
+    from repro.analysis import harvest
+    from repro.analysis.core import LintContext, SourceFile
+
+    from repro_torch.obs.events import EVENT_TYPES
+    from repro_torch.runtime import serving_torch
+
+    root = SRC / "repro_torch"
+    monkeypatch.setattr(harvest, "SERVING_JAX_REL", "runtime/serving_torch.py")
+    ctx = LintContext(root, [SourceFile(root, root / rel) for rel in
+                             ("exp/runner.py", "runtime/serving_torch.py")], [])
+    traced = harvest.harvest_traced_names(ctx)
+    params = set(serving_torch.make_params(
+        rsched.get_scenario("serve_yahoo").serving_config(quick=True)))
+    assert params <= traced and {"threshold", "max_transient", "max_slots"} <= traced
+    assert traced.isdisjoint(f.name for f in dc_fields(serving_torch.FleetSpec))
+    ref_py = SourceFile(root, root / "kernels" / "serving_fleet" / "ref.py")
+    width, _ = harvest.harvest_ev_counts_arity(ref_py)
+    events, _ = harvest.harvest_event_types(SourceFile(root, root / "obs" / "events.py"))
+    assert width == len(events) == len(EVENT_TYPES)

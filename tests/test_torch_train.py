@@ -54,6 +54,17 @@ TOL = 5e-4
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Run this module's torch ops on one thread, as tests/test_torch_mamba.py
+    does: with other test processes on every core, torch's intra-op pool
+    waits at each small eager op for descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
