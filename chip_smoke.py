@@ -136,6 +136,27 @@ checkout of the repository. Phases (none catches its own failure):
    kernel table, which gets the ``serving_fleet`` row (its ms and plain_ms
    are the quick serve_batched_yahoo program on the card and on the CPU).
    The phase must end within 60 s.
+10. arrivals — the arrival processes' slot-binned batch sampler
+   (``repro_torch.workload.arrivals.batch_sample_counts``, the twin of the
+   JAX package's vmapped ``sample_counts_jax``: threefry keys and
+   ``jax.random``'s Poisson and binomial algorithms as eager torch ops, no
+   kernel of its own), 24 h in 1,440 one-minute slots. (a)
+   ``benchmarks/fig1_burstiness.py``'s batch demo on the card: 32 seeds of
+   the google process (4000 servers), the first and a steady call against
+   32 serial exact samples on the host, both mean rates, and a profile of
+   the steady call (kernels, device ms, busy share). (b) 4,096 seeds of
+   seven processes (google, yahoo at yahoo_like's default rate, and
+   tests/test_workload.py's poisson, mmpp3, mmpp_trans, diurnal and
+   modulated), the first 256 rows held to the port's CPU run of those
+   seeds: rate grids bit for bit (rtol 1e-6 for diurnal and modulated,
+   where sin is applied per slot), counts differing on at most 1e-4 of the
+   entries; two card calls equal, seed 7 alone equal to row 7, the mean
+   rate within 10% of ``mean_rate``; wall times, the rejection loops'
+   iteration counts, peak memory. (c) The ``quickstart`` and
+   ``trace_replay`` twins at quick scale on the host, their stdout equal
+   to the JAX package's examples' (``EXAMPLES_GOLDEN``, held to fresh
+   reference runs by tests/test_torch_examples.py). An ``arrivals`` JSON
+   line goes before the kernel table. The phase must end within 60 s.
 
 ``--jamba-grad-study SEED [SEED ...]`` builds the kernels and runs only
 ``jamba_grad_phase`` for each seed, printing how far each mixer leaf lies
@@ -157,8 +178,8 @@ phase releases what it allocated; the script checks that less than 1 GB is
 left allocated before each model phase, so the 80 GB card holds one
 phase's peak at a time. The last lines are the fleet summary (JSON), the
 serving fleet's summary (JSON), the serving_torch summary (JSON), the
-kernel table (JSON), the card's name and power limit, and ``{"ok": true,
-"device": {...}}``.
+arrivals summary (JSON), the kernel table (JSON), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2490,6 +2511,208 @@ def serving_torch_phase(dev, fleet_host_s):
 
 
 # --------------------------------------------------------------------------
+# phase 10: the arrival processes' batch sampler on the card
+
+
+ARRIVALS_HORIZON = 24 * 3600.0
+ARRIVALS_DT = 60.0                 # 1,440 slots
+ARRIVALS_DEMO_SEEDS = 32           # benchmarks/fig1_burstiness.py's BATCH_SEEDS
+ARRIVALS_SEEDS = 4096              # a sweep's batch of seed variants
+ARRIVALS_CPU_SEEDS = 256           # the card's rows held to a CPU run of these seeds
+ARRIVALS_ROW = 7                   # the seed run alone against its row of the batch
+ARRIVALS_MAX_MISS = 1e-4           # share of compared counts the card and CPU may differ on
+ARRIVALS_RATE_RTOL = 1e-6          # Diurnal and Modulated grids (sin on the card)
+ARRIVALS_MEAN_RTOL = 0.10          # batch mean rate against process.mean_rate
+ARRIVALS_BUDGET_S = 60.0
+#: stdout of the JAX package's examples/quickstart.py and examples/trace_replay.py
+#: (quick scale, default flags); the chip machine has no JAX, so
+#: tests/test_torch_examples.py holds these to fresh reference runs
+EXAMPLES_GOLDEN = {
+    "quickstart": """\
+generating Yahoo-calibrated bursty trace ...
+  528 jobs, 10138 tasks, utilization 1.59
+
+Eagle baseline (static 8-server short partition):
+  short-task queueing delay avg=688.4s max=2260s
+
+CloudCoaster (p=0.5, r=3, L_r^T=0.95, 120s provisioning):
+  short-task queueing delay avg=56.1s max=484s
+  -> 12.3x average improvement (paper: 4.8x at full scale)
+  transients: avg active=6.9, avg lifetime=1.38h (paper: ~0.8h, far below spot MTTF)
+  dynamic-partition cost saving=42.9% (paper: 29.5%)
+  long-job delay unchanged: 3685s -> 3685s
+""",
+    "trace_replay": """\
+trace: 356 jobs / 5271 tasks / util 0.81
+
+config            avg wait  max wait act transients  life h    save
+eagle                227.5      1210            0.0    0.00    0.0%
+coaster_r1           296.0      1303            0.9    0.46   78.6%
+coaster_r2           161.9      1195            2.0    0.51   75.2%
+coaster_r3           110.4      1195            3.1    0.49   74.3%
+
+avg improvement coaster_r3 vs eagle: 2.1x (paper r=3: 4.8x) | max: 1.0x (paper: 1.83x)
+""",
+}
+
+
+def arrival_processes():
+    """Phase 10 (b)'s processes: the fig1 google process, the yahoo process
+    at yahoo_like's default rate (4000 servers, 80 short), and five of
+    tests/test_workload.py's ``PROCESSES`` (both Poisson branches, both
+    binomial branches, a cyclic and a ``trans`` chain, sin)."""
+    from repro_torch.workload import (MMPP, Diurnal, Modulated, Poisson,
+                                      TwoClassLognormalMix, google_arrivals,
+                                      yahoo_arrivals, yahoo_rate)
+
+    return {
+        "google": google_arrivals(),
+        "yahoo": yahoo_arrivals(yahoo_rate(4000, 80, ARRIVALS_HORIZON, 0.97, 0.65,
+                                           TwoClassLognormalMix())),
+        "poisson": Poisson(rate=0.05),
+        "mmpp3": MMPP(rates=(0.02, 0.1, 0.3), dwells=(3600.0, 1200.0, 300.0)),
+        "mmpp_trans": MMPP(rates=(0.02, 0.2), dwells=(1800.0, 600.0),
+                           trans=((0.3, 0.7), (0.9, 0.1))),
+        "diurnal": Diurnal(rate=0.05, rel_amplitude=0.7, period=4 * 3600.0),
+        "modulated": Modulated(base=MMPP.from_burst(0.05),
+                               envelope=Diurnal(rate=1.0, rel_amplitude=0.5,
+                                                period=4 * 3600.0)),
+    }
+
+
+def arrivals_phase(dev):
+    """The slot-binned batch sampler (``repro_torch.workload.arrivals``) on
+    the card (module docstring, phase 10): (a) fig1's demo, 32 seeds of the
+    google process against 32 serial exact samples on the host; (b) 4,096
+    seeds x 1,440 slots of seven processes, the first 256 rows held to the
+    port's CPU run of the same seeds (rate grids bitwise, or to rtol 1e-6
+    where sin is applied per slot; counts on all but at most 1e-4 of the
+    entries), two card calls equal, seed 7 alone equal to its row, the mean
+    rate within 10% of ``mean_rate``; (c) the two example twins' stdout
+    against the JAX package's. Wall times are host clocks around work that
+    ends in a synchronisation. Returns the ``arrivals`` summary."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.examples import quickstart, trace_replay
+    from repro_torch.runtime import threefry
+    from repro_torch.workload import (Diurnal, Modulated, batch_sample_counts,
+                                      google_arrivals, slot_counts)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def busy(fn, wall_s):
+        """Kernels one call launches, their device ms (torch.profiler) and
+        that time's share of the call's unprofiled wall time."""
+        t0 = time.perf_counter()
+        kernels = [e for e in profiled(fn, 1).key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        return dict(kernels=sum(e.count for e in kernels), device_ms=device_ms,
+                    busy_share=device_ms / (1e3 * wall_s),
+                    profile_s=time.perf_counter() - t0)
+
+    t_phase = time.perf_counter()
+    H, dt = ARRIVALS_HORIZON, ARRIVALS_DT
+    summary = {"horizon_s": H, "dt_s": dt}
+
+    # (a) benchmarks/fig1_burstiness.py's batch_generation_demo, on the card
+    proc = google_arrivals()
+    seeds = np.arange(ARRIVALS_DEMO_SEEDS)
+    serial, t_serial = timed(lambda: np.stack(
+        [slot_counts(proc.sample(int(s), H), H, dt) for s in seeds]))
+    _, t_first = timed(lambda: batch_sample_counts(proc, seeds, H, dt, device=dev))
+    batch, t_batch = timed(lambda: batch_sample_counts(proc, seeds, H, dt, device=dev))
+    summary["fig1"] = dict(
+        n_seeds=ARRIVALS_DEMO_SEEDS, n_slots=int(batch.shape[1]), serial_32_s=t_serial,
+        card_batch_first_call_s=t_first, card_batch_32_s=t_batch,
+        card_batch_speedup_x=t_serial / t_batch,
+        card_batch_speedup_incl_first_call_x=t_serial / t_first,
+        serial_mean_rate=float(serial.mean() / dt), card_mean_rate=float(batch.mean() / dt),
+        profile=busy(lambda: batch_sample_counts(proc, seeds, H, dt, device=dev), t_batch))
+    log(f"  arrivals fig1: {json.dumps(summary['fig1'])}")
+
+    # (b) the sweep scale: the card against the port's own CPU run
+    seeds = np.arange(ARRIVALS_SEEDS)
+    n = int(np.ceil(H / dt))
+    summary["processes"] = {}
+    for name, proc in arrival_processes().items():
+        exact = not isinstance(proc, (Diurnal, Modulated))
+        grids = []
+        for d in (dev, torch.device("cpu")):
+            key = threefry.split(threefry.seed_key(
+                torch.arange(ARRIVALS_CPU_SEEDS, device=d)), 3)[0]   # sample_counts' k_path
+            t_grid = (torch.arange(n, dtype=torch.float32, device=d) + 0.5) * dt
+            grids.append(proc.rate_grid(key, t_grid, dt).cpu().numpy())
+        g, c = grids
+        rate_miss = float(np.abs(g - c).max() / np.abs(c).max())
+        if (exact and not np.array_equal(g.view(np.uint32), c.view(np.uint32))) or (
+                not rate_miss <= ARRIVALS_RATE_RTOL):
+            raise AssertionError(f"arrivals {name}: the card's rate grid is not the CPU's "
+                                 f"({'bitwise' if exact else ARRIVALS_RATE_RTOL}; "
+                                 f"largest relative miss {rate_miss:.3e})")
+        torch.cuda.reset_peak_memory_stats(dev)
+        stats = {}
+        card, card_s = timed(lambda: batch_sample_counts(proc, seeds, H, dt, device=dev,
+                                                         stats=stats))
+        peak = torch.cuda.max_memory_allocated(dev)
+        again, again_s = timed(lambda: batch_sample_counts(proc, seeds, H, dt, device=dev))
+        t0 = time.perf_counter()
+        cpu = batch_sample_counts(proc, seeds[:ARRIVALS_CPU_SEEDS], H, dt, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        alone = batch_sample_counts(proc, [ARRIVALS_ROW], H, dt, device=dev)
+        misses = int((card[:ARRIVALS_CPU_SEEDS] != cpu).sum())
+        mean_rate, expect = float(card.mean() / dt), float(proc.mean_rate(H))
+        row = dict(seeds=ARRIVALS_SEEDS, slots=n, card_s=card_s, card_again_s=again_s,
+                   cpu_seeds=ARRIVALS_CPU_SEEDS, cpu_s=cpu_s, count_misses=misses,
+                   compared=int(cpu.size), rate_grid="bitwise" if exact else rate_miss,
+                   loop_iters=stats, peak_mem_gb=peak / 1e9, mean_rate=mean_rate,
+                   expected_mean_rate=expect)
+        summary["processes"][name] = row
+        log(f"  arrivals {name}: {json.dumps(row)}")
+        if card.shape != (ARRIVALS_SEEDS, n) or card.dtype != np.int32:
+            raise AssertionError(f"arrivals {name}: counts {card.shape} {card.dtype}")
+        if misses > ARRIVALS_MAX_MISS * cpu.size:
+            raise AssertionError(f"arrivals {name}: the card's counts differ from the CPU's "
+                                 f"on {misses} of {cpu.size} entries")
+        if not np.array_equal(card, again):
+            raise AssertionError(f"arrivals {name}: two card calls differ")
+        if not np.array_equal(alone[0], card[ARRIVALS_ROW]):
+            raise AssertionError(f"arrivals {name}: seed {ARRIVALS_ROW} alone is not its "
+                                 f"row of the batch")
+        if not abs(mean_rate - expect) <= ARRIVALS_MEAN_RTOL * expect:
+            raise AssertionError(f"arrivals {name}: mean rate {mean_rate} is not within "
+                                 f"{ARRIVALS_MEAN_RTOL} of {expect}")
+
+    # (c) the example twins on the host, against the JAX package's stdout
+    summary["examples_s"] = {}
+    for name, mod in (("quickstart", quickstart), ("trace_replay", trace_replay)):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main([])
+        summary["examples_s"][name] = time.perf_counter() - t0
+        if out.getvalue() != EXAMPLES_GOLDEN[name]:
+            raise AssertionError(f"arrivals: examples/{name} twin printed\n{out.getvalue()}"
+                                 f"not the JAX package's\n{EXAMPLES_GOLDEN[name]}")
+    log(f"  arrivals examples: {json.dumps(summary['examples_s'])}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    if summary["phase_s"] > ARRIVALS_BUDGET_S:
+        raise AssertionError(f"arrivals phase took {summary['phase_s']:.1f} s, over its "
+                             f"{ARRIVALS_BUDGET_S} s budget")
+    return summary
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -2577,6 +2800,7 @@ def main(argv=None):
     by_path["serving_torch"] = dict(more)
     for name, n in more.items():
         launches[name] += n
+    arrivals = arrivals_phase(dev)
 
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2617,11 +2841,13 @@ def main(argv=None):
         f"{fleet['phase_s']:.1f} s; serving fleet with and without the model equal "
         f"in {serving_fleet['phase_s']:.1f} s; serving_torch kernel bitwise equal to "
         f"the plain version and the JAX package's golden values in "
-        f"{serving_torch['phase_s']:.1f} s; total "
+        f"{serving_torch['phase_s']:.1f} s; arrivals sampler card vs CPU and example "
+        f"twins in {arrivals['phase_s']:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"fleet": {**fleet, "card": smi}}))
     print(json.dumps({"serving_fleet": {**serving_fleet, "card": smi}}, default=float))
     print(json.dumps({"serving_torch": {**serving_torch, "card": smi}}, default=float))
+    print(json.dumps({"arrivals": {**arrivals, "card": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@ builders, burstiness metrics, and deterministic trace persistence.
 
   arrivals.py — ArrivalProcess library (Poisson, N-state MMPP, Diurnal,
                 FlashCrowd, Modulated/Superpose combinators) with exact
-                serial samplers
+                serial samplers and the slot-binned batch sampler
+                (``batch_sample_counts``, the JAX package's draws through
+                threefry, on the card by default)
   jobmix.py   — job-size/duration mixes (Yahoo two-class, Google heavy-tail)
   builders.py — named trace builders (yahoo/google legacy-exact, diurnal,
                 flash-crowd, poisson control) used by scenario presets
@@ -15,8 +17,9 @@ builders, burstiness metrics, and deterministic trace persistence.
 
 from repro_torch.workload.arrivals import (ARRIVAL_PROCESSES, ArrivalProcess,  # noqa: F401
                                      Diurnal, FlashCrowd, MMPP, Modulated,
-                                     Poisson, Superpose, counts_to_times,
-                                     make_arrival_process)
+                                     Poisson, Superpose, batch_sample_counts,
+                                     counts_to_times, make_arrival_process,
+                                     sample_counts_torch)
 from repro_torch.workload.builders import (TRACE_BUILDERS, diurnal_like,  # noqa: F401
                                      flash_crowd_like, google_arrivals,
                                      google_like, poisson_like,

@@ -18,19 +18,34 @@ structure as small composable objects:
     arrivals riding a diurnal envelope);
   * :class:`Superpose` — sum of independent processes.
 
-Every process offers an **exact serial sampler** ``sample(seed, horizon)``
-→ arrival times.  Deterministic: the same ``(seed, params)`` always yields
-the identical array (property tests rely on this).  ``MMPP`` uses the exact
-Markov sampler; everything else realizes its rate function and thins a
-dominating homogeneous Poisson (Lewis & Shedler).  The slot-binned batch
-sampler of the JAX package (``rate_grid``, ``sample_counts_jax``,
-``batch_sample_counts``) has no counterpart here yet.
+Every process offers two samplers:
 
-Processes are frozen dataclasses with tuple fields, so they hash.
+  * an **exact serial sampler** ``sample(seed, horizon)`` → arrival times.
+    Deterministic: the same ``(seed, params)`` always yields the identical
+    array (property tests rely on this).  ``MMPP`` uses the exact Markov
+    sampler; everything else realizes its rate function and thins a
+    dominating homogeneous Poisson (Lewis & Shedler).
+  * a **batch thinning sampler** over fixed slots, ``sample_counts_torch``
+    / :func:`batch_sample_counts`, one tensor program over a batch of
+    seeds: candidates ~ Poisson(λ_max·dt) per slot are thinned by
+    Binomial(·, λ(t)/λ_max) — distributionally exact per slot given the
+    realized rate path (the MMPP state path is discretized to slot
+    granularity).  It is the twin of the JAX package's
+    ``sample_counts_jax`` under ``vmap``: every draw goes through
+    ``jax.random``'s threefry keys and algorithms
+    (:mod:`repro_torch.runtime.threefry`), so a seed's row is the JAX
+    package's row (the rate paths bit for bit where no transcendental
+    function is applied per slot, the counts up to a last-bit difference
+    of ``log``/``lgamma`` deciding a rejection test).  It runs on ``cuda``
+    unless asked for the CPU.
+
+Processes are frozen dataclasses with tuple fields, so they hash — the
+batch sampler's constants are cached per ``(process, horizon, dt,
+device)``.
 
 Registering a new arrival process: subclass :class:`ArrivalProcess`,
 implement ``rate profile`` hooks (``max_rate``/``mean_rate``/
-``realize_rate``), and add a named factory to
+``realize_rate``/``rate_grid``), and add a named factory to
 ``ARRIVAL_PROCESSES`` so scenario/trace builders can reference it by name.
 """
 
@@ -38,9 +53,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from functools import lru_cache
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.runtime import threefry
 
 
 def as_rng(seed) -> np.random.Generator:
@@ -93,6 +113,20 @@ class ArrivalProcess:
         keep = rng.random(n_cand) * lam_max <= lam(cand)
         return cand[keep]
 
+    # --------------------------------------------------------- batch sampler
+
+    def rate_grid(self, key, t_grid: torch.Tensor, dt: float) -> torch.Tensor:
+        """Per-slot realized rates λ(t_grid), f32 ``(B, n)`` on ``t_grid``'s
+        device, for a batch of ``B`` threefry keys (randomness from
+        ``key``, each row as the JAX package's ``rate_grid`` draws it)."""
+        raise NotImplementedError
+
+
+def _f32_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a Python number ``c`` rounded once, as JAX divides by a
+    weakly typed scalar (torch on the card multiplies by ``1 / c``)."""
+    return torch.div(x, torch.full_like(x, c))
+
 
 # =========================================================================
 #                              leaf processes
@@ -113,6 +147,10 @@ class Poisson(ArrivalProcess):
 
     def realize_rate(self, rng, horizon):
         return lambda t: np.full(np.shape(t), self.rate)
+
+    def rate_grid(self, key, t_grid, dt):
+        return torch.full(key[0].shape + t_grid.shape, self.rate,
+                          dtype=torch.float32, device=t_grid.device)
 
 
 @dataclass(frozen=True)
@@ -248,6 +286,35 @@ class MMPP(ArrivalProcess):
                 times.append(t)
         return np.asarray(times)
 
+    # --------------------------------------------------------- batch sampler
+
+    def rate_grid(self, key, t_grid, dt):
+        """Slot-discretized chain: per slot, switch with the CTMC hazard
+        ``1 - exp(-dt / dwell[s])`` (at most one switch per slot). The
+        reference's ``lax.scan`` is a loop over slots of one gather each:
+        the draws are made up front, and slot ``t``'s move from every state
+        is tabulated before the loop."""
+        n, dev = t_grid.shape[0], t_grid.device
+        rates, cum_start, p_switch, step = (
+            torch.as_tensor(a, device=dev) for a in _mmpp_tables(self, float(dt)))
+        k_start, k_path = threefry.split(key)
+        s0 = torch.searchsorted(cum_start, threefry.uniform(k_start))
+        s0 = s0.clamp(max=self.n_states - 1)
+        u = threefry.uniform(k_path, (n, 2)).transpose(0, 1)     # (n, B, 2)
+        if self.trans is None:
+            s_next = step.expand(u.shape[:2] + step.shape)
+        else:
+            s_next = torch.stack([torch.searchsorted(step[s], u[..., 1].contiguous())
+                                  for s in range(self.n_states)], dim=-1)
+            s_next = s_next.clamp(max=self.n_states - 1)
+        stay = torch.arange(self.n_states, device=dev)
+        to = torch.where(u[..., :1] < p_switch, s_next, stay)    # (n, B, N)
+        path = torch.empty((n + 1,) + s0.shape, dtype=torch.int64, device=dev)
+        path[0] = s0
+        for t in range(n):
+            torch.gather(to[t], 1, path[t].unsqueeze(1), out=path[t + 1].unsqueeze(1))
+        return rates[path[1:]].transpose(0, 1).contiguous()
+
 
 @dataclass(frozen=True)
 class Diurnal(ArrivalProcess):
@@ -280,6 +347,12 @@ class Diurnal(ArrivalProcess):
 
     def realize_rate(self, rng, horizon):
         return self._rate_at
+
+    def rate_grid(self, key, t_grid, dt):
+        w = 2.0 * np.pi / self.period
+        rate = self.rate * (1.0 + self.rel_amplitude
+                            * torch.sin(w * (t_grid - self.phase)))
+        return rate.expand(key[0].shape + t_grid.shape).contiguous()
 
 
 @dataclass(frozen=True)
@@ -321,6 +394,20 @@ class FlashCrowd(ArrivalProcess):
 
         return lam
 
+    def rate_grid(self, key, t_grid, dt):
+        horizon = t_grid.shape[0] * dt
+        if self.spike_times is not None:
+            starts = torch.tensor(self.spike_times, dtype=torch.float32,
+                                  device=t_grid.device) * horizon
+            starts = starts.expand(key[0].shape + starts.shape)
+        else:
+            span = np.float32(max(horizon - self.spike_duration, 0.0))
+            starts = threefry.uniform(key, (self.n_spikes,)) * float(span)
+        t = t_grid[:, None]
+        starts = starts.unsqueeze(-2)                            # (B, 1, spikes)
+        hot = ((t >= starts) & (t < starts + self.spike_duration)).any(dim=-1)
+        return self.rate * torch.where(hot, self.spike_mult, 1.0)
+
 
 # =========================================================================
 #                               combinators
@@ -350,6 +437,13 @@ class Modulated(ArrivalProcess):
         env_mean = max(self.envelope.mean_rate(horizon), 1e-12)
         return lambda t: base(t) * env(t) / env_mean
 
+    def rate_grid(self, key, t_grid, dt):
+        k1, k2 = threefry.split(key)
+        env_mean = max(self.envelope.mean_rate(float(t_grid.shape[0] * dt)),
+                       1e-12)
+        return _f32_div(self.base.rate_grid(k1, t_grid, dt)
+                        * self.envelope.rate_grid(k2, t_grid, dt), env_mean)
+
 
 @dataclass(frozen=True)
 class Superpose(ArrivalProcess):
@@ -367,6 +461,14 @@ class Superpose(ArrivalProcess):
         fns = [p.realize_rate(rng, horizon) for p in self.parts]
         return lambda t: sum(f(t) for f in fns)
 
+    def rate_grid(self, key, t_grid, dt):
+        keys = threefry.split(key, max(len(self.parts), 1))
+        out = torch.zeros(key[0].shape + t_grid.shape, dtype=torch.float32,
+                          device=t_grid.device)
+        for p, k in zip(self.parts, keys):
+            out = out + p.rate_grid(k, t_grid, dt)
+        return out
+
     def sample(self, seed, horizon):
         """Exact: merge each part's own exact sampler (one shared stream)."""
         rng = as_rng(seed)
@@ -374,13 +476,101 @@ class Superpose(ArrivalProcess):
             [p.sample(rng, horizon) for p in self.parts] or [np.empty(0)]))
 
 
+@lru_cache(maxsize=64)
+def _mmpp_tables(proc: MMPP, dt: float):
+    """An MMPP's f32 constants at slot length ``dt``, made on the host so
+    every device gets the same bits: the rates, the cumulative start law,
+    ``1 - exp(-dt / dwell[s])`` per state (the single f32 rounding of the
+    exact ``exp`` of JAX's f32 quotient, which is what the JAX package's
+    ``exp`` gives on these inputs; tests hold it bit for bit), and the
+    cyclic successor of each state, or the cumulative rows of ``trans``."""
+    f32 = np.float32
+    rates = np.asarray(proc.rates, f32)
+    cum_start = np.cumsum(np.asarray(proc._start(), f32), dtype=f32)
+    x = f32(-dt) / np.asarray(proc.dwells, f32)
+    p_switch = f32(1.0) - np.array([math.exp(float(v)) for v in x], f32)
+    if proc.trans is None:
+        step = (np.arange(proc.n_states) + 1) % proc.n_states
+    else:
+        step = np.cumsum(np.asarray(proc.trans, f32), axis=1, dtype=f32)
+    return rates, cum_start, p_switch, step
+
+
 # =========================================================================
-#                          slot-binned helpers
+#                        batch trace generation
 # =========================================================================
 
 
 def n_slots(horizon: float, dt: float) -> int:
     return int(np.ceil(horizon / dt))
+
+
+def sample_counts_torch(process: ArrivalProcess, key, horizon: float,
+                        dt: float, stats: Optional[dict] = None) -> torch.Tensor:
+    """Slot-binned traces: per-slot arrival counts via thinning, the twin
+    of the JAX package's ``sample_counts_jax``.
+
+    Candidates ~ Poisson(λ_max·dt) per slot, thinned Binomial(·, λ/λ_max)
+    against the realized rate path — per slot this is exactly
+    Poisson(λ(t)·dt) given the path. ``key`` is a threefry key, or a batch
+    of ``B`` keys (one per seed, as ``jax.vmap`` maps the reference over
+    seeds); returns int32 ``(n_slots,)`` or ``(B, n_slots)`` counts on the
+    key's device. ``stats``, a dict, gets the rejection loops' iteration
+    counts added.
+    """
+    k0, k1 = key
+    if k0.dim() == 0:
+        return sample_counts_torch(process, (k0[None], k1[None]), horizon, dt,
+                                   stats)[0]
+    t_grid, lam_max = _slot_constants(process, horizon, dt, k0.device)
+    return _thin(process, key, t_grid, lam_max, dt, stats)
+
+
+def _slot_constants(process: ArrivalProcess, horizon: float, dt: float,
+                    device: torch.device):
+    """The slot midpoints ``(arange(n) + 0.5) * dt`` in f32 and λ_max."""
+    n = n_slots(horizon, dt)
+    t_grid = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) * dt
+    return t_grid, float(process.max_rate(horizon))
+
+
+def _thin(process, key, t_grid, lam_max, dt, stats):
+    """``sample_counts_jax``'s body on a ``(B,)`` batch of keys."""
+    k_path, k_cand, k_thin = threefry.split(key, 3)
+    rates = process.rate_grid(k_path, t_grid, dt)
+    cand = threefry.poisson(k_cand, lam_max * dt, t_grid.shape[0], stats)
+    accept_p = torch.clamp(_f32_div(rates, max(lam_max, 1e-12)), 0.0, 1.0)
+    counts = threefry.binomial(k_thin, cand.to(torch.float32), accept_p, stats)
+    return counts.to(torch.int32)
+
+
+@lru_cache(maxsize=64)
+def _batch_sampler(process: ArrivalProcess, horizon: float, dt: float,
+                   device: torch.device):
+    """The batch program for ``(process, horizon, dt)`` on ``device``:
+    ``run(seeds, stats)`` → counts, with the slot grid on the device and
+    λ_max made once (an MMPP's tables are cached by ``_mmpp_tables``)."""
+    t_grid, lam_max = _slot_constants(process, horizon, dt, device)
+
+    def run(seeds: torch.Tensor, stats: Optional[dict] = None) -> torch.Tensor:
+        return _thin(process, threefry.seed_key(seeds), t_grid, lam_max, dt, stats)
+
+    return run
+
+
+def batch_sample_counts(process: ArrivalProcess, seeds, horizon: float,
+                        dt: float = 60.0, device: DeviceLike = None,
+                        stats: Optional[dict] = None) -> np.ndarray:
+    """Batched slot-binned traces: (n_seeds, n_slots) int32 arrival counts,
+    one tensor program over the seeds on ``device`` (``cuda`` unless asked
+    for ``"cpu"``; without a card it raises). Seed ``s`` gives the JAX
+    package's ``batch_sample_counts`` row of seed ``s`` (as uint32). The
+    program is cached per ``(process, horizon, dt, device)``."""
+    dev = resolve_device(device)
+    fn = _batch_sampler(process, float(horizon), float(dt), dev)
+    seeds = torch.as_tensor(np.asarray(seeds, np.int64).reshape(-1) & 0xFFFFFFFF,
+                            device=dev)
+    return fn(seeds, stats).cpu().numpy()
 
 
 def counts_to_times(rng, counts: np.ndarray, dt: float) -> np.ndarray:

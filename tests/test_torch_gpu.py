@@ -1122,3 +1122,48 @@ def test_serving_fleet_launch_events_time_each_launch_alone(cuda):
     assert len(events) == 2 and all(a.elapsed_time(b) > 0 for a, b in events)
     for k, v in plain.items():
         assert torch.equal(timed[k], v) and torch.equal(timed_again[k], v), k
+
+
+# ------------------------------------------------- arrivals batch sampler
+#
+# The slot-binned batch sampler (``repro_torch.workload.arrivals``) on the
+# card against the same program on the CPU, 512 seeds x 1,440 one-minute
+# slots, to chip_smoke.py phase 10 (b)'s bounds: rate grids bit for bit
+# (rtol 1e-6 where sin is applied per slot), counts on all but 1e-4 of the
+# entries (a last-bit difference of log/lgamma may flip a rejection test),
+# two card calls equal, a seed alone equal to its row, the mean rate within
+# 10% of ``mean_rate``.
+
+def _arrival_process(name):
+    from repro_torch.workload import MMPP, Diurnal, google_arrivals
+
+    return {"google": google_arrivals(),
+            "mmpp_trans": MMPP(rates=(0.02, 0.2), dwells=(1800.0, 600.0),
+                               trans=((0.3, 0.7), (0.9, 0.1))),
+            "diurnal": Diurnal(rate=0.05, rel_amplitude=0.7, period=4 * 3600.0)}[name]
+
+
+@pytest.mark.parametrize("name", ["google", "mmpp_trans", "diurnal"])
+def test_arrivals_sampler_on_the_card_matches_cpu(cuda, name):
+    from repro_torch.runtime import threefry
+    from repro_torch.workload import batch_sample_counts
+
+    proc = _arrival_process(name)
+    H, dt, seeds = 24 * 3600.0, 60.0, np.arange(512)
+    grids = []
+    for dev in (cuda, torch.device("cpu")):
+        key = threefry.split(threefry.seed_key(torch.arange(512, device=dev)), 3)[0]
+        t_grid = (torch.arange(1440, dtype=torch.float32, device=dev) + 0.5) * dt
+        grids.append(proc.rate_grid(key, t_grid, dt).cpu().numpy())
+    if name == "diurnal":
+        np.testing.assert_allclose(grids[0], grids[1], rtol=1e-6, atol=0)
+    else:
+        assert np.array_equal(grids[0].view(np.uint32), grids[1].view(np.uint32))
+    card = batch_sample_counts(proc, seeds, H, dt, device=cuda)
+    cpu = batch_sample_counts(proc, seeds, H, dt, device="cpu")
+    assert card.shape == (512, 1440) and card.dtype == np.int32
+    misses = int((card != cpu).sum())
+    assert misses <= 1e-4 * card.size, f"{misses} of {card.size} counts differ"
+    assert np.array_equal(card, batch_sample_counts(proc, seeds, H, dt, device=cuda))
+    assert np.array_equal(batch_sample_counts(proc, [7], H, dt, device=cuda)[0], card[7])
+    assert abs(card.mean() / dt - proc.mean_rate(H)) <= 0.1 * proc.mean_rate(H)

@@ -539,6 +539,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.serving_fleet.ops",
             "repro_torch.kernels.serving_fleet.kernel", "repro_torch.launch.smoke",
             "repro_torch.examples.serve_multitenant"} <= names
+    # the twins of the JAX package's quickstart and trace_replay examples
+    assert {"repro_torch.examples.quickstart", "repro_torch.examples.trace_replay"} <= names
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

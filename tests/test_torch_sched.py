@@ -135,10 +135,13 @@ def test_scenario_preset_equals_reference(name):
 
 
 def test_port_scenario_has_no_serving_config_and_arrivals_no_jax_half():
-    """Named for the state before the serving fleet was ported: the port's
-    ``Scenario.serving_config`` now resolves every ``serve_*`` preset to the
-    reference's fleet config (field for field, with and without a
-    serving-only override), while the arrivals' JAX half stays absent."""
+    """Named for the state before the serving fleet and the batch sampler
+    were ported: the port's ``Scenario.serving_config`` now resolves every
+    ``serve_*`` preset to the reference's fleet config (field for field,
+    with and without a serving-only override), and the arrivals' batch
+    half is present: every process has ``rate_grid`` and the package
+    exports the sampler's entry points under the reference's names, with
+    ``sample_counts_torch`` for ``sample_counts_jax``."""
     serve = [n for n in rsched.scenario_names() if n.startswith("serve_")]
     assert len(serve) == 7
     for name in serve:
@@ -149,11 +152,14 @@ def test_port_scenario_has_no_serving_config_and_arrivals_no_jax_half():
                 ref = rsched.get_scenario(name).serving_config(
                     quick=quick, sim_overrides=dict(over))
                 assert astuple(port) == astuple(ref), (name, quick, over)
-    assert not hasattr(twork, "batch_sample_counts")
+    assert callable(twork.batch_sample_counts) and callable(twork.sample_counts_torch)
     assert not hasattr(twork, "sample_counts_jax")
+    assert {n for n in dir(rwork) if "sample" in n} - {"sample_counts_jax"} <= \
+        {n for n in dir(twork) if "sample" in n}
     for cls in (twork.Poisson, twork.MMPP, twork.Diurnal, twork.FlashCrowd,
-                twork.Modulated, twork.Superpose, twork.ArrivalProcess):
-        assert not hasattr(cls, "rate_grid"), cls
+                twork.Modulated, twork.Superpose):
+        assert cls.rate_grid is not twork.ArrivalProcess.rate_grid, cls
+    assert hasattr(twork.ArrivalProcess, "rate_grid")
 
 
 # ------------------------------------------------------------------ traces
@@ -319,7 +325,9 @@ def test_port_passes_the_reference_linter():
     assert {"runtime/serving.py", "examples/serve_bursty.py", "exp/runner.py",
             "launch/serve.py", "launch/sim.py", "core/engine.py",
             "runtime/serving_torch.py", "kernels/serving_fleet/ref.py",
-            "launch/smoke.py", "examples/serve_multitenant.py"} <= scanned
+            "launch/smoke.py", "examples/serve_multitenant.py",
+            "examples/quickstart.py", "examples/trace_replay.py",
+            "workload/arrivals.py", "runtime/threefry.py"} <= scanned
     out = subprocess.run(
         [sys.executable, "-m", "repro.analysis.lint", "--root",
          str(SRC / "repro_torch"), "--rules", "determinism,obs-hygiene,static-shape"],
