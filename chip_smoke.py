@@ -10,12 +10,22 @@ checkout of the repository. Phases (none catches its own failure):
    parallel; each kernel entry's registers, shared memory and spills from
    ``ptxas -v``;
 2. kernels — each hand-written kernel against its plain PyTorch version on
-   the card at full-width shapes. Attention at starcoder2-3b's (H=24, KV=2,
-   hd=128, bs=16, B=4, L=4096; flash S=4608, window 4096), and at
-   jamba-1.5-large-398b's (H=64, KV=8, hd=128, bf16; flash S=4500 global
-   and S=1024 global, its training microbatch; dense decode B=4 over 8192
-   slots), plus softcap=50
-   and hd=256 cases; tolerances atol 2e-5 for f32 and int8-dequantised
+   the card at full-width shapes. Attention runs one table of cases a
+   kernel (``FLASH_CASES``, ``DECODE_CASES`` over ``ATTN_LAYOUTS``), the
+   timed ones marked: starcoder2-3b's layout (H=24, KV=2, hd=128; flash
+   S=4608, window 4096; decode B=4 over L=4096, bs=16), timed, in bf16
+   and f32, with int8 pools; jamba-1.5-large-398b's (H=64, KV=8, hd=128;
+   flash S=4500 global and S=1024 global, its training microbatch; dense
+   decode B=4 over 8192 slots), timed; softcap=50 and hd=256 cases; and
+   each new family's layout in bf16: mixtral-8x22b (H=48, KV=8, window
+   4096; flash also at S=8192, the 8192 bucket its 4500-token prompt is
+   served in; B1 at group 6), timed; llama4-scout (H=40, KV=8, window
+   8192; B1 at group 5); deepseek-coder/yi (H=56, KV=8); musicgen
+   (H=KV=24, hd=64); paligemma (H=8, KV=1, hd=256 with its
+   256-embedding prefix, S=256+513), B3 over 4 slots of 8192 positions.
+   B1 runs on B3's cache through a shuffled page table and must equal it
+   bit for bit. Decode bounds count the visible keys only (the kernels
+   read every position). Tolerances atol 2e-5 for f32 and int8-dequantised
    pools, 2e-2 for bf16. The RWKV-6 scan at rwkv6-3b's (H=40, hd=64): a
    4500-token prefill and a 4-slot decode step in bf16, an f32 prefill, and
    the plan's value-column split bitwise equal to two others (4 and 16);
@@ -38,9 +48,10 @@ checkout of the repository. Phases (none catches its own failure):
    paged-int8 and dense (16-token pages, bucket 16), then rwkv6-3b dense
    (exact-length prefill), then jamba-1.5-large-398b dense (exact-length
    prefill) at ``JAMBA_SERVE``: 16 of its 72 layers (2 of its 8-layer
-   blocks: 14 Mamba and 2 attention layers), experts off, every MoE FFN the
-   dense SwiGLU the reference builds then, 16.9 B parameters, 33.86 GB in
-   bf16. The launch and plain-call counts are zeroed just
+   blocks: 14 Mamba and 2 attention layers), experts off (one 8-layer
+   block with its experts is ~90 GB, more than the card), every MoE FFN
+   the dense SwiGLU the reference builds then, 16.9 B parameters, 33.86
+   GB in bf16. The launch and plain-call counts are zeroed just
    before each run and read just after: every kernel of the run must have
    launched, no plain version may have run, and paged tokens must equal
    dense tokens;
@@ -157,6 +168,33 @@ checkout of the repository. Phases (none catches its own failure):
    to the JAX package's examples' (``EXAMPLES_GOLDEN``, held to fresh
    reference runs by tests/test_torch_examples.py). An ``arrivals`` JSON
    line goes before the kernel table. The phase must end within 60 s.
+11. model families — (a) mixtral-8x22b at full width, bf16, 8 of its 56
+   layers with all 8 experts (top-2; ``MIXTRAL_SERVE``: 20.43 B
+   parameters, 40.9 GB), seeded random weights, through
+   ``ContinuousBatcher`` (4 slots, max_len 8192, 16-token pages, bucket
+   16) on ``PROMPT_LENS`` x ``MAX_NEW``, paged and dense. Counts zeroed
+   before each run and read after: B2 once per admitted request and layer
+   (64), B1 (paged) or B3 (dense) once per decode step and layer, no plain
+   call, every request ``MAX_NEW`` tokens, each request's first token (the
+   bucketed prefill's) equal across the layouts. The paged step routes
+   its 4 rows as one group and the dense step each row alone, as the
+   reference's batcher does, so only the first tokens must agree; the
+   phase logs how many requests agree in full, with decode ms a step,
+   tokens/s, prefill ms, peak memory and the dense step's profile, and the
+   dropped expert assignments of each layout, counted in an untimed rerun
+   of its requests with the MoE layer's record on. (b) f32 logits, kernel path
+   against plain path, within 2e-4 of max |logit|: mixtral at 2 layers
+   (21.6 GB), llama4-scout at one block (4 layers, 16 experts top-1 and
+   the shared expert, 43.5 GB), musicgen-medium (48 layers, frame
+   embeddings in) and paligemma-3b (18 layers, a 256-embedding prefix),
+   each a 513-token prefill and 4 dense decode steps, the two MoE models
+   also 4 paged steps of two rows; the routing choices that differ
+   between the paths are logged (with the router margins if any).
+   (c) ``repro_torch.launch.serve.main(["--arch", X])`` at full width for
+   musicgen-medium and paligemma-3b: B2 once per layer, B3 once per layer
+   and step. A ``families`` JSON line goes before the kernel table, and
+   (a)'s and (c)'s launches join its counts. The phase must end within
+   120 s.
 
 ``--jamba-grad-study SEED [SEED ...]`` builds the kernels and runs only
 ``jamba_grad_phase`` for each seed, printing how far each mixer leaf lies
@@ -178,8 +216,9 @@ phase releases what it allocated; the script checks that less than 1 GB is
 left allocated before each model phase, so the 80 GB card holds one
 phase's peak at a time. The last lines are the fleet summary (JSON), the
 serving fleet's summary (JSON), the serving_torch summary (JSON), the
-arrivals summary (JSON), the kernel table (JSON), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+arrivals summary (JSON), the families summary (JSON), the kernel table
+(JSON), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -202,6 +241,9 @@ NEG_INF = -2.3819763e38
 ARCH = "starcoder2-3b"
 RWKV_ARCH = "rwkv6-3b"
 JAMBA_ARCH = "jamba-1.5-large-398b"
+# jamba with its experts needs ~90 GB an 8-layer block: phases 3-6 run it
+# with experts off (every MoE FFN the dense SwiGLU the reference builds
+# then); phase 11 runs the port's experts on mixtral-8x22b and llama4-scout
 NO_MOE = dict(moe_period=0, num_experts=0, experts_per_token=0)
 JAMBA_SERVE = dict(num_layers=16, **NO_MOE)   # 2 of 9 blocks, bf16: 33.86 GB
 JAMBA_BLOCK = dict(num_layers=8, **NO_MOE)    # 1 block: 9.0 B params, 18.0 GB bf16, 36.0 GB f32
@@ -266,14 +308,6 @@ def ref_chunk_bytes(B, H, S, row_floats):
     return B * H * -(-S // REF_CHUNK) * row_floats * 4
 
 
-def flash_pairs(S, window):
-    """Visible (q, k) pairs of causal self-attention with a sliding window."""
-    import numpy as np
-
-    q = np.arange(S)
-    return int(np.minimum(q + 1, window if window else S).sum())
-
-
 def log_ptxas(stem, path):
     """One line per kernel entry of a library from its ``ptxas -v`` log:
     registers, shared memory, barriers and spills."""
@@ -310,8 +344,9 @@ def _prefixed(prefix, row):
 
 
 def _log_shape_row(label, row, prefix="jamba_"):
+    lib = row[prefix + "library_ms"]
     log(f"  {label}: ms={row[prefix + 'ms']:.4f} plain_ms={row[prefix + 'plain_ms']:.4f} "
-        f"library_ms={row[prefix + 'library_ms']:.4f} "
+        f"library_ms={'none' if lib is None else f'{lib:.4f}'} "
         f"bound_ms={row[prefix + 'bound_ms']:.5f} ({row[prefix + 'bound_by']}) "
         f"at {row[prefix + 'shape']}")
 
@@ -323,7 +358,80 @@ def _log_event_row(label, row, prefix="jamba_"):
         f"(CUDA events, paced by the host)")
 
 
+# Phase 2's attention cases, one table a kernel. Every case is held to its
+# plain version, bf16 (and f32 where ``f32``); a case with a ``row`` is also
+# timed, its numbers joining the kernel's row under that key prefix ("" for
+# the row's own keys). B2 runs one prompt of S tokens; B3 runs 4 slots of L
+# cache positions, slot b seeing the keys below ``valid[b]`` (within the
+# window; the prefix always), and with ``paged`` B1 runs on the same cache
+# through a shuffled page table (bitwise equal to B3); ``shared_bias`` adds
+# B3 with slot 1's bias row shared by every slot, ``int8`` B1 on int8 pools
+# quantised from the f32 ones. Defaults: the longest serving prompt, and
+# slots at its end, a short one, a full cache and one key.
+LONG_PROMPT = max(PROMPT_LENS)
+FAMILY_VALID = (LONG_PROMPT + MAX_NEW, 1013, 8192, 1)
+ATTN_LAYOUTS = {  # name: (H, KV, hd, window, prefix_len)
+    "starcoder2-3b": (24, 2, 128, 4096, 0),
+    "jamba-1.5-large-398b": (64, 8, 128, 0, 0),
+    "mixtral-8x22b": (48, 8, 128, 4096, 0),
+    "llama4-scout-17b-a16e": (40, 8, 128, 8192, 0),
+    "deepseek-coder-33b/yi-34b": (56, 8, 128, 0, 0),
+    "musicgen-medium": (24, 24, 64, 0, 0),
+    "paligemma-3b": (8, 1, 256, 0, 256),
+}
+FLASH_CASES = (
+    dict(layout="starcoder2-3b", S=4608, f32=True, row=""),
+    dict(layout="jamba-1.5-large-398b", row="jamba_"),
+    dict(layout="jamba-1.5-large-398b", S=TRAIN_SEQ_JAMBA, row="train_", iters=10),
+    dict(layout="starcoder2-3b", S=1024, window=0, softcap=50.0),
+    dict(layout=(8, 4, 256, 1024, 0), S=2048, softcap=50.0),
+    dict(layout="mixtral-8x22b", row="mixtral_"),
+    # the longest prompt as the served path runs it: right-padded to its
+    # 8192 bucket (the pad rows come last and see every real key)
+    dict(layout="mixtral-8x22b", S=8192),
+    dict(layout="llama4-scout-17b-a16e"),
+    dict(layout="deepseek-coder-33b/yi-34b"),
+    dict(layout="musicgen-medium"),
+    dict(layout="paligemma-3b", S=256 + 513),
+)
+DECODE_CASES = (
+    dict(layout="starcoder2-3b", L=4096, window=0, valid=(4096, 2071, 524, 41),
+         f32=True, paged=True, int8=True, row="", copies=8),
+    dict(layout="jamba-1.5-large-398b", valid=(8192, LONG_PROMPT + MAX_NEW, 1013, 41),
+         row="jamba_"),
+    dict(layout="starcoder2-3b", L=4096, window=0, valid=(4096, 2071, 524, 41),
+         softcap=50.0, paged=True),
+    dict(layout=(8, 4, 256, 0, 0), L=4096, valid=(4096, 2071, 524, 41),
+         shared_bias=True, paged=True),
+    dict(layout="mixtral-8x22b", paged=True, row="mixtral_"),
+    dict(layout="llama4-scout-17b-a16e", paged=True),
+    dict(layout="deepseek-coder-33b/yi-34b"),
+    dict(layout="musicgen-medium"),
+    dict(layout="paligemma-3b"),
+)
+PAGE = 16                     # the batcher's KV block size
+
+
+def _case_layout(case):
+    """(label, H, KV, hd, window, prefix_len) of a case; its own ``window``
+    overrides the layout's."""
+    lay = case["layout"]
+    H, KV, hd, W, prefix = ATTN_LAYOUTS[lay] if isinstance(lay, str) else lay
+    label = lay if isinstance(lay, str) else f"H={H} KV={KV} hd={hd}"
+    return label, H, KV, hd, case.get("window", W), prefix
+
+
+def decode_bound(q, kv_row_bytes, visible, others, dtype_name):
+    """Bound of one decode call that needs only its ``visible`` keys (summed
+    over the slots): those K/V rows, q, the output and ``others`` (the bias
+    and any page table), each once; 4 operations a head and head element a
+    visible key. The kernels read every position, masked or not."""
+    H, hd = q.shape[1], q.shape[2]
+    return bound(others + 2 * visible * kv_row_bytes, 4 * H * hd * visible, dtype_name)
+
+
 def kernel_phase(dev):
+    """B2, B3 and B1 over ``FLASH_CASES`` and ``DECODE_CASES``."""
     import torch
     import torch.nn.functional as F
 
@@ -332,236 +440,173 @@ def kernel_phase(dev):
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, paged_decode_attention_ref)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import allowed, attention_ref
     from repro_torch.optim.compress import quantize_int8
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     bf16, f32 = torch.bfloat16, torch.float32
     tol = {bf16: 2e-2, f32: 2e-5}
-    rows = {}
+    rows, worst = {}, {}
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    # ---- B2 flash prefill: starcoder2 full width, one 4608-token prompt
-    B, H, KV, hd, S, W = 1, 24, 2, 128, 4608, 4096
+    def held(kernel, name, got, ref, dtype):
+        err = _check(name, got, ref, tol[dtype])
+        worst[kernel] = max(err, worst.get(kernel, 0.0))
+        return err
+
+    def add_row(kernel, prefix, label, row, events=False):
+        rows.setdefault(kernel, {}).update(_prefixed(prefix, row))
+        _log_shape_row(f"{kernel} {label}", rows[kernel], prefix)
+        if events:
+            _log_event_row(f"{kernel} {label}", rows[kernel], prefix)
+
     log("kernel phase: flash_attention (B2)")
-    for dtype in (bf16, f32):
-        q, k, v = (randn((B, S, n, hd), dtype).transpose(1, 2) for n in (H, KV, KV))
-        o = flash_attention_fwd(q, k, v, window=W)
-        ref = attention_ref(q, k, v, window=W)
-        err = _check(f"flash {dtype} S={S} window={W}", o, ref, tol[dtype])
-        if dtype == bf16:
-            pairs = flash_pairs(S, W)
-            mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-            mask &= ~torch.ones(S, S, dtype=torch.bool, device=dev).tril(-W)
-            rows["flash_attention"] = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: flash_attention_fwd(q, k, v, window=W), 5),
-                plain_ms=time_ms(lambda: attention_ref(q, k, v, window=W), 3),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True), 5),
-                **bound(nbytes(q, k, v, o), 4 * B * H * hd * pairs, "bfloat16"),
-                shape=f"B={B} H={H} KV={KV} S={S} hd={hd} window={W} bf16")
-        del q, k, v, o, ref
-    # jamba's attention layers: H=64, KV=8 (G=8), global, the longest
-    # serving prompt, bf16 as the serving path runs them
-    JH, JKV, JS = 64, 8, max(PROMPT_LENS)
-    q, k, v = (randn((B, JS, n, hd), bf16).transpose(1, 2) for n in (JH, JKV, JKV))
-    o = flash_attention_fwd(q, k, v)
-    err = _check(f"flash bf16 jamba H={JH} KV={JKV} S={JS} global", o,
-                 attention_ref(q, k, v), tol[bf16])
-    rows["flash_attention"].update(_prefixed("jamba_", dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: flash_attention_fwd(q, k, v), 5),
-        plain_ms=time_ms(lambda: attention_ref(q, k, v), 3),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 5),
-        **bound(nbytes(q, k, v, o), 4 * B * JH * hd * flash_pairs(JS, 0), "bfloat16"),
-        shape=f"B={B} H={JH} KV={JKV} S={JS} hd={hd} global bf16")))
-    _log_shape_row("flash_attention jamba", rows["flash_attention"])
-    rows["flash_attention"]["max_abs_err"] = max(err, rows["flash_attention"]["max_abs_err"])
-    del q, k, v, o
-    # the same layer on jamba's training path: one microbatch row of
-    # TRAIN_SEQ_JAMBA tokens, bf16 (the forward and its remat recompute)
-    q, k, v = (randn((B, TRAIN_SEQ_JAMBA, n, hd), bf16).transpose(1, 2)
-               for n in (JH, JKV, JKV))
-    o = flash_attention_fwd(q, k, v)
-    err = _check(f"flash bf16 jamba H={JH} KV={JKV} S={TRAIN_SEQ_JAMBA} global", o,
-                 attention_ref(q, k, v), tol[bf16])
-    rows["flash_attention"].update(_prefixed("train_", dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: flash_attention_fwd(q, k, v), 10),
-        plain_ms=time_ms(lambda: attention_ref(q, k, v), 5),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 10),
-        **bound(nbytes(q, k, v, o), 4 * B * JH * hd * flash_pairs(TRAIN_SEQ_JAMBA, 0),
-                "bfloat16"),
-        shape=f"B={B} H={JH} KV={JKV} S={TRAIN_SEQ_JAMBA} hd={hd} global bf16")))
-    _log_shape_row("flash_attention jamba training", rows["flash_attention"], "train_")
-    rows["flash_attention"]["max_abs_err"] = max(err, rows["flash_attention"]["max_abs_err"])
-    del q, k, v, o
-    q, k, v = (randn((1, 1024, n, hd), bf16).transpose(1, 2) for n in (H, KV, KV))
-    _check("flash bf16 S=1024 softcap=50", flash_attention_fwd(q, k, v, softcap=50.0),
-           attention_ref(q, k, v, softcap=50.0), tol[bf16])
-    q, k, v = (randn((1, 2048, n, 256), bf16).transpose(1, 2) for n in (8, 4, 4))
-    _check("flash bf16 hd=256 S=2048 softcap=50 window=1024",
-           flash_attention_fwd(q, k, v, softcap=50.0, window=1024),
-           attention_ref(q, k, v, softcap=50.0, window=1024), tol[bf16])
-    del q, k, v
+    for case in FLASH_CASES:
+        label, H, KV, hd, W, prefix = _case_layout(case)
+        S, cap = case.get("S", LONG_PROMPT), case.get("softcap", 0.0)
+        kw = dict(window=W, prefix_len=prefix, softcap=cap)
+        for dtype in (bf16, f32) if case.get("f32") else (bf16,):
+            q, k, v = (randn((1, S, n, hd), dtype).transpose(1, 2) for n in (H, KV, KV))
+            o = flash_attention_fwd(q, k, v, **kw)
+            err = held("flash_attention", f"flash {dtype} {label} S={S} window={W} "
+                       f"prefix={prefix} softcap={cap:g}", o,
+                       attention_ref(q, k, v, **kw), dtype)
+            if "row" in case and dtype == bf16:
+                n, mask = case.get("iters", 5), allowed(S, S, dev, window=W,
+                                                        prefix_len=prefix)
+                pairs = int(mask.sum())
+                if W or prefix:
+                    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                        q, k, v, attn_mask=mask, enable_gqa=True)
+                else:
+                    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                        q, k, v, is_causal=True, enable_gqa=True)
+                add_row("flash_attention", case["row"], f"{label} S={S}", dict(
+                    max_abs_err=err,
+                    ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw), n),
+                    plain_ms=time_ms(lambda: attention_ref(q, k, v, **kw), -(-n // 2)),
+                    library_ms=time_ms(lib, n),
+                    **bound(nbytes(q, k, v, o), 4 * H * hd * pairs, "bfloat16"),
+                    shape=f"B=1 H={H} KV={KV} S={S} hd={hd} "
+                          f"{f'window={W}' if W else 'global'} bf16"))
+                del mask, lib
+            del q, k, v, o
 
-    # ---- B3 dense decode: 4 slots against a 4096-slot rolling cache
-    B, L = 4, 4096
-    lens = torch.tensor([L, 2071, 524, 41], device=dev)
-    bias = torch.where(torch.arange(L, device=dev)[None] < lens[:, None],
-                       0.0, NEG_INF).float()
-    log("kernel phase: decode_attention (B3)")
-    n_copies = 8  # rotate caches so each timed launch reads from HBM, not L2
-    for dtype in (bf16, f32):
-        q = randn((B, H, hd), dtype)
-        caches = [(randn((B, L, KV, hd), dtype).transpose(1, 2),
-                   randn((B, L, KV, hd), dtype).transpose(1, 2))
-                  for _ in range(n_copies if dtype == bf16 else 1)]
-        k, v = caches[0]
-        o = decode_attention_fwd(q, k, v, bias)
-        err = _check(f"decode {dtype} B={B} L={L}", o,
-                     decode_attention_ref(q, k, v, bias), tol[dtype])
-        if dtype == bf16:
+    log("kernel phase: decode_attention (B3) and paged_decode_attention (B1)")
+    for case in DECODE_CASES:
+        label, H, KV, hd, W, prefix = _case_layout(case)
+        L, cap = case.get("L", 8192), case.get("softcap", 0.0)
+        B, P = 4, L // PAGE
+        pos = torch.arange(L, device=dev)[None]
+        valid = torch.tensor(case.get("valid", FAMILY_VALID), device=dev)
+        ok = pos < valid[:, None]
+        if W:
+            ok &= pos >= valid[:, None] - W
+        if prefix:
+            ok |= pos < prefix
+        bias = torch.where(ok, 0.0, NEG_INF).float()
+        table = (torch.randperm(B * P, generator=gen, device=dev) + 2).reshape(B, P)
+        for dtype in (bf16, f32) if case.get("f32") else (bf16,):
+            timed = "row" in case and dtype == bf16
+            q = randn((B, H, hd), dtype)
+            caches = [(randn((B, L, KV, hd), dtype), randn((B, L, KV, hd), dtype))
+                      for _ in range(case.get("copies", 2) if timed else 1)]
+            kt, vt = (c.transpose(1, 2) for c in caches[0])
+            o = decode_attention_fwd(q, kt, vt, bias, softcap=cap)
+            name = f"{dtype} {label} B={B} L={L} window={W} prefix={prefix} softcap={cap:g}"
+            err = held("decode_attention", f"decode {name}", o, decode_attention_ref(
+                q, kt, vt, bias, softcap=cap), dtype)
+            if case.get("shared_bias"):
+                held("decode_attention", f"decode {name} shared bias",
+                     decode_attention_fwd(q, kt, vt, bias[1], softcap=cap),
+                     decode_attention_ref(q, kt, vt, bias[1], softcap=cap), dtype)
+            # per copy, two caches of ``dtype``: rotating them keeps each timed
+            # launch reading from HBM rather than L2
+            views = [tuple(c.transpose(1, 2) for c in kv) for kv in caches]
             it = iter(range(10**9))
-            mask4 = bias[:, None, None, :]
+            visible, row_bytes = int(ok.sum()), KV * hd * caches[0][0].element_size()
+            if timed:
+                def kern():
+                    return decode_attention_fwd(q, *views[next(it) % len(views)], bias)
 
-            def kern():
-                return decode_attention_fwd(q, *caches[next(it) % n_copies], bias)
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        q[:, :, None], *views[next(it) % len(views)],
+                        attn_mask=bias[:, None, None, :], enable_gqa=True)
 
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    q[:, :, None], *caches[next(it) % n_copies], attn_mask=mask4,
-                    enable_gqa=True)
+                add_row("decode_attention", case["row"], label, dict(
+                    max_abs_err=err,
+                    ms=kernel_device_ms(kern, 40, "decode_kernel", "decode_attention", 2),
+                    plain_ms=time_ms(lambda: decode_attention_ref(
+                        q, *views[next(it) % len(views)], bias), 20),
+                    library_ms=library_device_ms(sdpa, 40),
+                    event_ms=time_ms(kern, 40), event_library_ms=time_ms(sdpa, 40),
+                    **decode_bound(q, row_bytes, visible, nbytes(q, bias, o), "bfloat16"),
+                    shape=f"B={B} H={H} KV={KV} L={L} hd={hd} "
+                          f"{f'window={W} ' if W else ''}bf16, per-slot bias, "
+                          f"{visible} of {B * L} positions visible"), events=True)
+            if case.get("paged"):
+                idx = table.long()
+                pools = []
+                for kc, vc in caches:
+                    kp = torch.zeros((2 + B * P, PAGE, KV, hd), dtype=dtype, device=dev)
+                    vp = torch.zeros_like(kp)
+                    kp[idx] = kc.reshape(B, P, PAGE, KV, hd)
+                    vp[idx] = vc.reshape(B, P, PAGE, KV, hd)
+                    pools.append((kp, vp))
+                tab = table.to(torch.int32)
+                po = paged_decode_attention_fwd(q, *pools[0], tab, bias, softcap=cap)
+                perr = held("paged_decode_attention", f"paged {name} G={H // KV} bs={PAGE}",
+                            po, paged_decode_attention_ref(q, *pools[0], tab, bias,
+                                                           softcap=cap), dtype)
+                if not torch.equal(po, o):
+                    raise AssertionError(f"paged {name}: differs from dense on the same cache")
+                if timed:
+                    def kern():
+                        return paged_decode_attention_fwd(
+                            q, *pools[next(it) % len(pools)], tab, bias)
 
-            rows["decode_attention"] = dict(
-                max_abs_err=err,
-                ms=kernel_device_ms(kern, 40, "decode_kernel", "decode_attention", 2),
-                plain_ms=time_ms(lambda: decode_attention_ref(
-                    q, *caches[next(it) % n_copies], bias), 20),
-                library_ms=library_device_ms(sdpa, 40),
-                event_ms=time_ms(kern, 40), event_library_ms=time_ms(sdpa, 40),
-                **bound(nbytes(q, k, v, bias, o), 4 * B * H * hd * L,
-                        "bfloat16"),
-                shape=f"B={B} H={H} KV={KV} L={L} hd={hd} bf16, per-slot bias")
-            _log_event_row("decode_attention", rows["decode_attention"], "")
-        del caches, k, v
-    # jamba's attention layers: 4 slots of its serving run's 8192-slot
-    # cache, H=64, KV=8 (G=8); two caches of 134 MB, each beyond L2
-    JL = 8192
-    jlens = torch.tensor([JL, max(PROMPT_LENS) + MAX_NEW, 1013, 41], device=dev)
-    jbias = torch.where(torch.arange(JL, device=dev)[None] < jlens[:, None],
-                        0.0, NEG_INF).float()
-    q = randn((B, JH, hd), bf16)
-    caches = [tuple(randn((B, JL, JKV, hd), bf16).transpose(1, 2) for _ in range(2))
-              for _ in range(2)]
-    k, v = caches[0]
-    o = decode_attention_fwd(q, k, v, jbias)
-    err = _check(f"decode bf16 jamba B={B} H={JH} KV={JKV} L={JL}", o,
-                 decode_attention_ref(q, k, v, jbias), tol[bf16])
-    it = iter(range(10**9))
-
-    def kern():
-        return decode_attention_fwd(q, *caches[next(it) % 2], jbias)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(
-            q[:, :, None], *caches[next(it) % 2], attn_mask=jbias[:, None, None, :],
-            enable_gqa=True)
-
-    rows["decode_attention"].update(_prefixed("jamba_", dict(
-        max_abs_err=err,
-        ms=kernel_device_ms(kern, 40, "decode_kernel", "decode_attention", 2),
-        plain_ms=time_ms(lambda: decode_attention_ref(
-            q, *caches[next(it) % 2], jbias), 20),
-        library_ms=library_device_ms(sdpa, 40),
-        event_ms=time_ms(kern, 40), event_library_ms=time_ms(sdpa, 40),
-        **bound(nbytes(q, k, v, jbias, o), 4 * B * JH * hd * JL, "bfloat16"),
-        shape=f"B={B} H={JH} KV={JKV} L={JL} hd={hd} bf16, per-slot bias")))
-    _log_shape_row("decode_attention jamba", rows["decode_attention"])
-    _log_event_row("decode_attention jamba", rows["decode_attention"])
-    rows["decode_attention"]["max_abs_err"] = max(err, rows["decode_attention"]["max_abs_err"])
-    del caches, k, v, o
-    q = randn((B, H, hd), bf16)
-    k, v = (randn((B, L, KV, hd), bf16).transpose(1, 2) for _ in range(2))
-    _check("decode bf16 softcap=50", decode_attention_fwd(q, k, v, bias, softcap=50.0),
-           decode_attention_ref(q, k, v, bias, softcap=50.0), tol[bf16])
-    q = randn((B, 8, 256), bf16)
-    k, v = (randn((B, L, 4, 256), bf16).transpose(1, 2) for _ in range(2))
-    _check("decode bf16 hd=256 shared bias", decode_attention_fwd(q, k, v, bias[1]),
-           decode_attention_ref(q, k, v, bias[1]), tol[bf16])
-    del q, k, v
-
-    # ---- B1 paged decode: the batcher's pool (4 slots x 512 pages + 2)
-    bs, P, n_phys = 16, L // 16, 2 + 4 * 512
-    table = (torch.randperm(4 * 512, generator=gen, device=dev)[:B * P] + 2)
-    table = table.reshape(B, P).to(torch.int32)
-    log("kernel phase: paged_decode_attention (B1)")
-
-    def pools(dtype, n):
-        return [(randn((n_phys, bs, KV, hd), dtype), randn((n_phys, bs, KV, hd), dtype))
-                for _ in range(n)]
-
-    for dtype in (bf16, f32):
-        q = randn((B, H, hd), dtype)
-        pl = pools(dtype, n_copies if dtype == bf16 else 1)
-        kp, vp = pl[0]
-        o = paged_decode_attention_fwd(q, kp, vp, table, bias)
-        err = _check(f"paged {dtype} B={B} P={P} bs={bs}", o,
-                     paged_decode_attention_ref(q, kp, vp, table, bias),
-                     tol[dtype])
-        if dtype == bf16:
-            it = iter(range(10**9))
-            gathered = B * P * bs * KV * hd * 2 * 2
-
-            def kern():
-                return paged_decode_attention_fwd(q, *pl[next(it) % n_copies], table, bias)
-
-            rows["paged_decode_attention"] = dict(
-                max_abs_err=err,
-                ms=kernel_device_ms(kern, 40, "decode_kernel", "paged_decode_attention", 2),
-                event_ms=time_ms(kern, 40),
-                plain_ms=time_ms(lambda: paged_decode_attention_ref(
-                    q, *pl[next(it) % n_copies], table, bias), 20),
-                library_ms=None,  # no single PyTorch call gathers through a page table
-                **bound(nbytes(q, table, bias, o) + gathered,
-                        4 * B * H * hd * L, "bfloat16"),
-                shape=f"B={B} H={H} KV={KV} P={P} bs={bs} hd={hd} bf16 pool")
-            log(f"  paged_decode_attention: ms={rows['paged_decode_attention']['ms']:.5f} "
-                f"(profiler, both kernels) event_ms="
-                f"{rows['paged_decode_attention']['event_ms']:.5f} (back-to-back calls)")
-        del pl, kp, vp
-    kf, vf = pools(f32, 1)[0]
-    qk, ks = quantize_int8(kf)
-    qv, vs = quantize_int8(vf)
-    del kf, vf
-    for dtype in (f32, bf16):
-        q = randn((B, H, hd), dtype)
-        o = paged_decode_attention_fwd(q, qk, qv, table, bias, k_scale=ks, v_scale=vs)
-        _check(f"paged int8 pool, q {dtype}", o,
-               paged_decode_attention_ref(q, qk, qv, table, bias, k_scale=ks,
-                                          v_scale=vs), tol[dtype])
-    ms8 = kernel_device_ms(lambda: paged_decode_attention_fwd(
-        q, qk, qv, table, bias, k_scale=ks, v_scale=vs), 40, "decode_kernel",
-        "paged_decode_attention", 2)
-    b8 = bound(nbytes(q, table, bias, o) + B * P * bs * KV * (hd + 4) * 2,
-               4 * B * H * hd * L, "bfloat16")["bound_ms"]
-    log(f"  paged int8 pool (bf16 q): ms={ms8:.4f} bound_ms={b8:.4f} "
-        f"(L2-warm: one pool)")
-    q = randn((B, H, hd), bf16)
-    kp, vp = pools(bf16, 1)[0]
-    _check("paged bf16 softcap=50", paged_decode_attention_fwd(
-        q, kp, vp, table, bias, softcap=50.0), paged_decode_attention_ref(
-        q, kp, vp, table, bias, softcap=50.0), tol[bf16])
-    q = randn((B, 8, 256), bf16)
-    kp, vp = (randn((n_phys, bs, 4, 256), bf16) for _ in range(2))
-    _check("paged bf16 hd=256", paged_decode_attention_fwd(q, kp, vp, table, bias),
-           paged_decode_attention_ref(q, kp, vp, table, bias), tol[bf16])
-    del q, kp, vp, qk, qv
+                    add_row("paged_decode_attention", case["row"], label, dict(
+                        max_abs_err=perr,
+                        ms=kernel_device_ms(kern, 40, "decode_kernel",
+                                            "paged_decode_attention", 2),
+                        event_ms=time_ms(kern, 40),
+                        plain_ms=time_ms(lambda: paged_decode_attention_ref(
+                            q, *pools[next(it) % len(pools)], tab, bias), 20),
+                        library_ms=None,  # no single PyTorch call gathers through a page table
+                        **decode_bound(q, row_bytes, visible, nbytes(q, tab, bias, po),
+                                       "bfloat16"),
+                        shape=f"B={B} H={H} KV={KV} P={P} bs={PAGE} hd={hd} "
+                              f"{f'window={W} ' if W else ''}bf16 pool, "
+                              f"{visible} of {B * L} positions visible"))
+                    log(f"  paged_decode_attention {label}: event_ms="
+                        f"{rows['paged_decode_attention'][case['row'] + 'event_ms']:.5f} "
+                        f"(back-to-back calls)")
+                if case.get("int8") and dtype == f32:
+                    qk, ks = quantize_int8(pools[0][0])
+                    qv, vs = quantize_int8(pools[0][1])
+                    for qd in (f32, bf16):
+                        q8 = q.to(qd)
+                        o8 = paged_decode_attention_fwd(q8, qk, qv, tab, bias,
+                                                        k_scale=ks, v_scale=vs)
+                        held("paged_decode_attention", f"paged int8 pool, q {qd}", o8,
+                             paged_decode_attention_ref(q8, qk, qv, tab, bias,
+                                                        k_scale=ks, v_scale=vs), qd)
+                    ms8 = kernel_device_ms(lambda: paged_decode_attention_fwd(
+                        q8, qk, qv, tab, bias, k_scale=ks, v_scale=vs), 40,
+                        "decode_kernel", "paged_decode_attention", 2)
+                    # an int8 row: hd bytes and one f32 scale a kv head
+                    b8 = decode_bound(q8, KV * (hd + 4), visible, nbytes(q8, tab, bias, o8),
+                                      "bfloat16")["bound_ms"]
+                    log(f"  paged int8 pool (bf16 q): ms={ms8:.4f} bound_ms={b8:.5f} "
+                        f"(L2-warm: one pool)")
+                    del qk, qv, ks, vs, o8
+                del pools, po
+            del q, caches, views, o
+    for kernel, err in worst.items():
+        rows[kernel]["max_abs_err"] = err
     torch.cuda.empty_cache()
     return rows
 
@@ -1111,13 +1156,22 @@ def check_released(dev, what):
 
 def serving_phase(dev, seed, cfg, layouts):
     """One ContinuousBatcher run per layout of the model ``cfg``, the counts
-    zeroed just before and read just after each."""
+    zeroed just before and read just after each. A config with experts
+    must launch B2 exactly once per admitted request and layer and the
+    decode kernel once per decode step and layer; its layouts route their
+    decode steps in different groups (see ``repro_torch.runtime.batching``),
+    so only each request's first token must agree across layouts, and the
+    dropped expert assignments of each layout are counted in a rerun of
+    its requests outside the timed one (``repro_torch.models.mlp.RECORD``)
+    and logged."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import KERNEL_NAMES, LAUNCHES, PLAIN_CALLS, reset_counts
     from repro_torch.models.decoder import DecoderLM
     from repro_torch.runtime.batching import ContinuousBatcher, GenRequest
+
+    moe = any(spec.is_moe for spec in DecoderLM(cfg).specs)
 
     class TimedModel(DecoderLM):
         """Synchronised wall-clock per prefill (by bucket) and decode step."""
@@ -1148,6 +1202,37 @@ def serving_phase(dev, seed, cfg, layouts):
             self.decode_ms.append(ms)
             return out
 
+    def counted_drops(name, kw, timed_tokens):
+        """The run's expert assignments and dropped ones, apart for prefills
+        (a group of a whole bucket, 16 tokens or more) and decode steps (a
+        group of the slots or of one), from a rerun of the same requests
+        with the MoE layer's record on; its tokens are compared with the
+        timed run's."""
+        from repro_torch.models import mlp
+
+        rb, rerun = batcher(DecoderLM(cfg), kw)
+        mlp.RECORD = calls = []
+        try:
+            with torch.inference_mode():
+                rb.run()
+        finally:
+            mlp.RECORD = None
+        if not calls or any(keep is None for _, _, keep in calls):
+            raise AssertionError(f"{name}: the MoE layers recorded no capacity dispatch")
+        out = {}
+        for idx, _, keep in calls:
+            kind = "prefill" if idx.shape[1] >= 16 else "decode"
+            out[kind + "_assignments"] = out.get(kind + "_assignments", 0) + keep.numel()
+            out[kind + "_dropped"] = out.get(kind + "_dropped", 0) + int((~keep).sum())
+        if kw["kv_layout"] == "dense" and out["decode_dropped"]:
+            # a row routed alone sends its k choices to k distinct
+            # experts, each with room for one: nothing can drop
+            raise AssertionError(f"{name}: the dense step dropped assignments; "
+                                 f"its rows are not routed alone")
+        out["rerun_tokens_equal"] = [r.tokens for r in rerun] == timed_tokens
+        del rb, calls
+        return out
+
     check_released(dev, f"serving {cfg.name}")
     log(f"serving phase: {cfg.name} full width: layers={cfg.num_layers} "
         f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
@@ -1163,16 +1248,20 @@ def serving_phase(dev, seed, cfg, layouts):
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
 
-    launches = {name: 0 for name in KERNEL_NAMES}
-    tokens, summary = {}, {}
-    for name, (kw, needed) in layouts.items():
-        model = TimedModel(cfg)
-        torch.cuda.reset_peak_memory_stats(dev)
+    def batcher(model, kw):
         b = ContinuousBatcher(model, params, max_slots=4, max_len=8192,
                               kv_block_size=16, prompt_bucket=16, device=dev, **kw)
         reqs = [GenRequest(i, p, MAX_NEW) for i, p in enumerate(prompts)]
         for r in reqs:
             b.submit(r)
+        return b, reqs
+
+    launches = {name: 0 for name in KERNEL_NAMES}
+    tokens, summary = {}, {}
+    for name, (kw, needed) in layouts.items():
+        model = TimedModel(cfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        b, reqs = batcher(model, kw)
         with torch.inference_mode():
             reset_counts()
             torch.cuda.synchronize()
@@ -1188,6 +1277,12 @@ def serving_phase(dev, seed, cfg, layouts):
             raise AssertionError(f"{name}: kernels never launched: {missing}")
         if sum(plain.values()):
             raise AssertionError(f"{name}: plain versions ran on the card: {plain}")
+        if moe:
+            want = {needed[0]: len(reqs) * cfg.num_layers,
+                    needed[1]: len(model.decode_ms) * cfg.num_layers}
+            got = {k: counts[k] for k in want}
+            if got != want:
+                raise AssertionError(f"{name}: launches {got}, expected {want}")
         for k, n in counts.items():
             launches[k] += n
         tokens[name] = [r.tokens for r in reqs]
@@ -1198,21 +1293,35 @@ def serving_phase(dev, seed, cfg, layouts):
             prefill_ms_by_bucket={k: round(sum(v) / len(v), 3)
                                   for k, v in sorted(model.prefill_ms.items())},
             decode_ms_per_step=sum(model.decode_ms) / len(model.decode_ms),
+            decode_ms_median=float(np.median(model.decode_ms)),
             decode_steps=len(model.decode_ms),
             kv_cache_bytes=b.kv_cache_bytes(),
             max_memory_allocated=torch.cuda.max_memory_allocated(dev),
             launches=counts, plain_calls=sum(plain.values()))
+        if moe:
+            summary[name].update(counted_drops(name, kw, tokens[name]))
         log(f"  {name}: {json.dumps(summary[name])}")
         if name == "dense":  # after the counted run: these launches go uncounted
             pos = torch.as_tensor(b.pos, device=dev)
             with torch.inference_mode():
                 prof = decode_profile(lambda: DecoderLM.decode_step(
-                    model, params, b.cache_slots, tokens=b.last_tok, pos=pos))
+                    model, params, b.cache_slots, tokens=b.last_tok, pos=pos,
+                    route_rows=True))
             log(f"  {name} decode step profile (4 slots): "
                 f"{json.dumps(prof) if prof else 'not measured (no device time recorded)'}")
         del b, model
         torch.cuda.empty_cache()
-    if "paged" in tokens:
+    if moe:
+        if [t[0] for t in tokens["paged"]] != [t[0] for t in tokens["dense"]]:
+            raise AssertionError("first tokens (from the prefill) differ across layouts")
+        same = sum(a == b for a, b in zip(tokens["paged"], tokens["dense"]))
+        agree = np.mean([a == b for ra, rb in zip(tokens["paged"], tokens["dense"])
+                         for a, b in zip(ra, rb)])
+        summary["requests_equal_across_layouts"] = int(same)
+        log(f"  first tokens equal across layouts; {same} of {len(prompts)} requests "
+            f"equal in full, {agree:.4f} of tokens (the layouts route decode steps in "
+            f"different groups, as the reference's do)")
+    elif "paged" in tokens:
         if tokens["paged"] != tokens["dense"]:
             raise AssertionError("paged tokens differ from dense tokens")
         agree = np.mean([a == b for ra, rb in zip(tokens["paged-int8"], tokens["dense"])
@@ -2713,6 +2822,234 @@ def arrivals_phase(dev):
 
 
 # --------------------------------------------------------------------------
+# phase 11: the model families, mixtral-8x22b's experts at full width
+
+
+MIXTRAL_ARCH = "mixtral-8x22b"
+LLAMA4_ARCH = "llama4-scout-17b-a16e"
+MUSICGEN_ARCH = "musicgen-medium"
+PALIGEMMA_ARCH = "paligemma-3b"
+MIXTRAL_SERVE = dict(num_layers=8)    # 8 of 56 layers, every expert: 20.43 B params, 40.9 GB bf16
+MIXTRAL_F32 = dict(num_layers=2)      # 5.4 B params, 21.6 GB in f32
+LLAMA4_BLOCK = dict(num_layers=4)     # one block (3 local, 1 global): 10.9 B params, 43.5 GB f32
+MOE_LAYOUTS = {
+    "paged": (dict(kv_layout="paged"), ("flash_attention", "paged_decode_attention")),
+    "dense": (dict(kv_layout="dense"), ("flash_attention", "decode_attention")),
+}
+SERVE_GEN = 32                        # launch.serve's default --gen
+FAMILIES_BUDGET_S = 120.0
+
+
+def _routes_recorded():
+    """Turn on the MoE layer's record (``repro_torch.models.mlp.RECORD``);
+    returns the list each MoE call appends its (idx, probs, keep) to, and
+    a function that turns the record off."""
+    from repro_torch.models import mlp
+
+    mlp.RECORD = calls = []
+
+    def restore():
+        mlp.RECORD = None
+
+    return calls, restore
+
+
+def _route_gaps(kern_calls, plain_calls):
+    """Routing choices that differ between the two paths, and the kernel
+    path's router margin (k-th minus (k+1)-th probability) at each token
+    where they differ."""
+    import torch
+
+    if len(kern_calls) != len(plain_calls):
+        raise AssertionError(f"{len(kern_calls)} router calls on the kernel path, "
+                             f"{len(plain_calls)} on the plain path")
+    differ, margins = 0, []
+    for (ik, pk, _), (ip, _, _) in zip(kern_calls, plain_calls):
+        bad = (ik != ip).any(-1)
+        differ += int((ik != ip).sum())
+        if bad.any():
+            k = ik.shape[-1]
+            top = torch.sort(pk[bad], dim=-1, descending=True).values
+            nxt = top[..., k] if top.shape[-1] > k else torch.zeros_like(top[..., 0])
+            margins += (top[..., k - 1] - nxt).flatten().tolist()
+    return differ, margins
+
+
+def families_f32(dev, seed, cfg):
+    """f32 logits of the kernel path against the plain path on the card: a
+    513-token prefill (tokens, frame embeddings or text after the image
+    prefix; attention-only token stacks in a 1024 bucket, so MoE layers
+    route the pads too) and 4 dense decode steps; a config with experts
+    also prefills two prompts into a 2-slot paged batcher and takes 4
+    paged steps of both rows (routed together). Returns (worst relative
+    gap, routing choices that differ)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.runtime.batching import ContinuousBatcher, GenRequest
+
+    check_released(dev, f"the f32 phase of {cfg.name}")
+    cfg = cfg.replace(dtype="float32", param_dtype="float32")
+    kern, plain = DecoderLM(cfg), DecoderLM(cfg, plain=True)
+    params = kern.init(torch.Generator(device=dev).manual_seed(seed + 2), device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed + 2)
+    moe = any(spec.is_moe for spec in kern.specs)
+    plen, max_len = 513, 8192
+
+    def emb(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
+
+    kw = dict(max_len=max_len)
+    if cfg.family == "audio":
+        kw["embeds"] = emb(1, plen, cfg.d_model)
+    else:
+        bucket = 1024 if kern.bucketed_prefill else plen
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :plen] = rng.integers(1, cfg.vocab_size, plen)
+        kw["tokens"] = torch.as_tensor(toks, device=dev)
+        if kern.bucketed_prefill:
+            kw["true_len"] = plen
+    if cfg.family == "vlm":
+        kw["prefix_embeds"] = emb(1, cfg.prefix_len, cfg.d_model)
+    pos0 = plen + cfg.prefix_len
+    log(f"f32 phase: {cfg.name} in float32, {cfg.num_layers} layers, {n_params} params, "
+        f"prompt {plen}{' after a ' + str(cfg.prefix_len) + '-embedding prefix' if cfg.prefix_len else ''}"
+        f"{', bucket 1024' if 'true_len' in kw else ''}")
+    worst, differ, margins = 0.0, 0, []
+
+    def compare(what, lk, lp, ck, cp):
+        nonlocal worst, differ
+        scale = lp.abs().max().item()
+        rel = (lk - lp).abs().max().item() / scale
+        worst = max(worst, rel)
+        if moe and not ck:
+            raise AssertionError(f"{cfg.name} {what}: the MoE layers recorded no routing")
+        d, m = _route_gaps(ck, cp)
+        differ += d
+        margins.extend(m)
+        log(f"  {what}: max|dlogit|/max|logit|={rel:.3e} (max|logit|={scale:.3f})"
+            + (f"; routing choices differing {d}" if moe else ""))
+        if not rel <= LOGIT_RTOL:
+            raise AssertionError(f"{cfg.name} f32 kernel vs plain logits: {rel} > "
+                                 f"{LOGIT_RTOL}")
+
+    calls, restore = _routes_recorded()
+    try:
+        with torch.inference_mode():
+            lk, ck = kern.prefill(params, **kw)
+            rk = calls[:]
+            calls.clear()
+            lp, cp = plain.prefill(params, **kw)
+            compare("prefill", lk, lp, rk, calls[:])
+            for step in range(4):
+                if cfg.family == "audio":
+                    inp = dict(embeds=emb(1, 1, cfg.d_model))
+                else:
+                    inp = dict(tokens=torch.argmax(lk, -1)[:, None])
+                calls.clear()
+                lk, ck = kern.decode_step(params, ck, pos=pos0 + step, **inp)
+                rk = calls[:]
+                calls.clear()
+                lp, cp = plain.decode_step(params, cp, pos=pos0 + step, **inp)
+                compare(f"dense decode {step + 1}", lk, lp, rk, calls[:])
+            del ck, cp
+            if moe:
+                prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                           for n in (plen, 100)]
+                bats = [ContinuousBatcher(m, params, max_slots=2, max_len=max_len,
+                                          kv_layout="paged", device=dev)
+                        for m in (kern, plain)]
+                for slot, p in enumerate(prompts):
+                    for b in bats:
+                        b._admit(slot, GenRequest(slot, p, 8))
+                bk, bp = bats
+                if not (np.array_equal(bk.allocator.table, bp.allocator.table)
+                        and bk.last_tok.equal(bp.last_tok)):
+                    raise AssertionError(f"{cfg.name}: the paged admissions differ")
+                table = torch.as_tensor(bk.allocator.table, device=dev)
+                pos = torch.as_tensor(bk.pos, device=dev)
+                tok = bk.last_tok
+                for step in range(4):
+                    calls.clear()
+                    lk, _ = kern.decode_step_paged(params, bk.pools, tokens=tok,
+                                                   pos_vec=pos, pages=table)
+                    rk = calls[:]
+                    calls.clear()
+                    lp, _ = plain.decode_step_paged(params, bp.pools, tokens=tok,
+                                                    pos_vec=pos, pages=table)
+                    compare(f"paged decode {step + 1} (2 rows)", lk, lp, rk, calls[:])
+                    tok = torch.argmax(lk, -1)[:, None]
+                    pos = pos + 1
+                del bats, bk, bp
+    finally:
+        restore()
+    if margins:
+        log(f"  router margins where the paths differ: {sorted(margins)[:16]}")
+    del params
+    torch.cuda.empty_cache()
+    return worst, differ
+
+
+def families_phase(dev, seed):
+    """Phase 11: (a) mixtral-8x22b at 8 of its 56 layers with every expert,
+    bf16, served paged and dense through ContinuousBatcher; (b) f32 logits,
+    kernel path against plain path, of mixtral at 2 layers, llama4-scout
+    at one block, musicgen-medium and paligemma-3b at full depth; (c)
+    ``launch.serve --arch`` at full width for musicgen-medium and
+    paligemma-3b, B2 once per layer for the prefill and B3 once per layer
+    and step. Returns (launches of (a) and (c), summary)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNEL_NAMES, LAUNCHES, PLAIN_CALLS, reset_counts
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    mixtral = get_config(MIXTRAL_ARCH)
+    launches, serving = serving_phase(dev, seed, mixtral.replace(**MIXTRAL_SERVE),
+                                      MOE_LAYOUTS)
+    summary = {"mixtral_serving": serving}
+    f32 = {}
+    for cfg in (mixtral.replace(**MIXTRAL_F32), get_config(LLAMA4_ARCH).replace(**LLAMA4_BLOCK),
+                get_config(MUSICGEN_ARCH), get_config(PALIGEMMA_ARCH)):
+        t0 = time.perf_counter()
+        worst, differ = families_f32(dev, seed, cfg)
+        f32[cfg.name] = dict(layers=cfg.num_layers, worst_rel=worst,
+                             routing_choices_differing=differ,
+                             s=time.perf_counter() - t0)
+    summary["f32"] = f32
+    summary["serve_launcher"] = {}
+    for arch in (MUSICGEN_ARCH, PALIGEMMA_ARCH):
+        cfg = get_config(arch)
+        check_released(dev, f"launch.serve --arch {arch}")
+        reset_counts()
+        t0 = time.perf_counter()
+        serve.main(["--arch", arch])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, plain = dict(LAUNCHES), dict(PLAIN_CALLS)
+        want = {"flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * SERVE_GEN}
+        got = {k: n for k, n in counts.items() if n}
+        if got != want or sum(plain.values()):
+            raise AssertionError(f"launch.serve --arch {arch}: launches {got}, expected "
+                                 f"{want}; plain calls {plain}")
+        for name, n in counts.items():
+            launches[name] += n
+        summary["serve_launcher"][arch] = dict(wall_s=wall, launches=got)
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"families phase: {json.dumps(summary, default=float)}")
+    if summary["phase_s"] > FAMILIES_BUDGET_S:
+        raise AssertionError(f"families phase took {summary['phase_s']:.1f} s > "
+                             f"{FAMILIES_BUDGET_S} s")
+    return {name: launches.get(name, 0) for name in KERNEL_NAMES}, summary
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -2801,6 +3138,10 @@ def main(argv=None):
     for name, n in more.items():
         launches[name] += n
     arrivals = arrivals_phase(dev)
+    families_launches, families = families_phase(dev, args.seed)
+    by_path["families"] = dict(families_launches)
+    for name, n in families_launches.items():
+        launches[name] += n
 
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -2832,7 +3173,7 @@ def main(argv=None):
             "launches_by_path": {path: n[name] for path, n in by_path.items()},
             **{k: v for k, v in r.items()
                if k.startswith(("decode_", "train_", "jamba_", "event_", "device_",
-                                "plain_device"))}})
+                                "plain_device", "mixtral_"))}})
     log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; f32 gradient "
         f"check passed: rwkv6-3b worst {worst_grad:.3e} <= {LOGIT_RTOL}, full depth "
         f"{depth_ratio:.3f} <= 1 of its limit; jamba block in place "
@@ -2842,12 +3183,15 @@ def main(argv=None):
         f"in {serving_fleet['phase_s']:.1f} s; serving_torch kernel bitwise equal to "
         f"the plain version and the JAX package's golden values in "
         f"{serving_torch['phase_s']:.1f} s; arrivals sampler card vs CPU and example "
-        f"twins in {arrivals['phase_s']:.1f} s; total "
+        f"twins in {arrivals['phase_s']:.1f} s; model families (mixtral-8x22b served "
+        f"paged and dense, f32 logits of four families, the serve launcher) in "
+        f"{families['phase_s']:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"fleet": {**fleet, "card": smi}}))
     print(json.dumps({"serving_fleet": {**serving_fleet, "card": smi}}, default=float))
     print(json.dumps({"serving_torch": {**serving_torch, "card": smi}}, default=float))
     print(json.dumps({"arrivals": {**arrivals, "card": smi}}))
+    print(json.dumps({"families": {**families, "card": smi}}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Architecture registry of the port: ``get_config`` + reduced smoke configs.
 
-A copy of ``repro.configs.registry`` restricted to the stacks the port serves
-so far: attention-only (starcoder2-3b, gemma2-2b), RWKV-6 (rwkv6-3b) and
-the Mamba/attention hybrid jamba-1.5-large-398b (its MoE layers are not
-ported: the port builds it with ``moe_period=0``, see ``models.decoder``).
-``smoke_config`` is the reference's reduction verbatim, so a smoke config
-built here equals the reference's field for field.
+A copy of ``repro.configs.registry``: the same ten ids in the same order,
+each config a copy of the reference's module (dense GQA: deepseek-coder-33b,
+starcoder2-3b, yi-34b, gemma2-2b; RWKV-6: rwkv6-3b; the Mamba/attention
+hybrid with experts: jamba-1.5-large-398b; audio over frame embeddings:
+musicgen-medium; mixture-of-experts: llama4-scout-17b-a16e, mixtral-8x22b;
+a vision prefix before gemma text: paligemma-3b). ``smoke_config`` is the
+reference's reduction verbatim, so a smoke config built here equals the
+reference's field for field.
 """
 
 from __future__ import annotations
@@ -16,10 +18,16 @@ from typing import Dict
 from repro_torch.models.config import ModelConfig, block_structure
 
 _MODULES: Dict[str, str] = {
+    "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "yi-34b": "repro_torch.configs.yi_34b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -7,8 +7,13 @@ this module imports no JAX). The reference stacks each block position's
 weights under ``params["blocks"][j]`` with a leading ``n_blocks`` axis; the
 port keeps one dict per layer, layer ``i * block_size + j`` being block
 ``i``'s position ``j``. Nested layer dicts (``attn``/``mlp``, RWKV's
-``tm``/``cm``) and ``ln0`` are carried as they are; every leaf keeps its
-dtype (RWKV's f32 ``decay_base``/``bonus``/``ln_x`` in a bf16 model too).
+``tm``/``cm``, an MoE layer's ``moe`` with its ``router`` (d, E),
+``w_gate``/``w_up`` (E, d, ff), ``w_out`` (E, ff, d) and ``shared`` expert)
+and ``ln0`` are carried as they are; every leaf keeps its dtype (RWKV's f32
+``decay_base``/``bonus``/``ln_x`` and the f32 ``router`` in a bf16 model
+too). A top-level entry the tree lacks stays absent: ``embed`` where the
+model takes embeddings (musicgen), ``lm_head`` where it is tied
+(paligemma).
 
 ``opt_state_from_jax(np_opt, cfg)`` carries the reference's AdamW state
 (``AdamW.init``/``update``'s ``{"m", "v", ["ef"]}``) the same way: each

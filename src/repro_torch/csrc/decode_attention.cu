@@ -44,8 +44,11 @@
 // denominator floored at 1e-37.
 //
 // Bound on the H100: bytes. Every cached K/V byte is read once and used for
-// G multiply-adds per element, far below the ~295 FLOP/byte ridge, so the
-// least time is B*L*KV*hd*2*sizeof(kv) / 3.35 TB/s. The split puts at least
+// G multiply-adds per element, far below the ~295 FLOP/byte ridge. The
+// routine reads all L positions, masked or not, so it takes at least
+// B*L*KV*hd*2*sizeof(kv) / 3.35 TB/s; the function needs only the keys
+// its bias leaves visible, which is less wherever a slot is short or
+// windowed (chip_smoke.py's bound counts those). The split puts at least
 // two CTAs on every SM at the main path's shapes (three fit), each with a
 // chunk of loads in flight while it computes the one before.
 #include "common.cuh"

@@ -5,8 +5,8 @@ Under autograd the op is a ``torch.autograd.Function`` (the counterpart of
 the reference's ``jax.custom_vjp`` in ``repro.kernels.rwkv6_scan.ops``):
 its forward saves the chunk-start states, its backward rewinds each chunk
 from them and runs the reverse recurrence (B7 on the card,
-``rwkv6_scan_bwd_ref`` on the CPU). ``bwd_impl="ref"`` instead
-differentiates the plain forward by autograd, the yardstick of the tests.
+``rwkv6_scan_bwd_ref`` on the CPU). The tests' yardstick is autograd
+through the plain forward, ``rwkv6_scan_ref``, called directly.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ class _WKV(torch.autograd.Function):
         return dr, dk, dv, dw.to(w.dtype), du, ds0.to(ctx.s0_dtype)
 
 
-def rwkv6_scan(r, k, v, w, u, s0, *, state_out=None, bwd_impl="kernel"):
+def rwkv6_scan(r, k, v, w, u, s0, *, state_out=None):
     """WKV recurrence over any S >= 1. r,k,v,w: (B,H,S,hd); u: (H,hd) f32;
     s0: (B,H,hd,hd) f32. Returns (y (B,H,S,hd) f32, sT (B,H,hd,hd) f32).
 
@@ -62,8 +62,4 @@ def rwkv6_scan(r, k, v, w, u, s0, *, state_out=None, bwd_impl="kernel"):
     if state_out is not None:
         raise ValueError("rwkv6_scan: state_out (an in-place state write) is "
                          "refused when a gradient is required")
-    if bwd_impl == "ref":
-        return rwkv6_scan_ref(r, k, v, w, u, s0)
-    if bwd_impl != "kernel":
-        raise ValueError(f"bwd_impl={bwd_impl!r}; use 'kernel' or 'ref'")
     return _WKV.apply(r, k, v, w, u, s0)

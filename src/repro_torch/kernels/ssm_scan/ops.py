@@ -5,8 +5,8 @@ Under autograd the op is a ``torch.autograd.Function`` (the counterpart of
 the reference's ``jax.custom_vjp`` in ``repro.kernels.ssm_scan.ops``): its
 forward saves the chunk-start states, its backward replays each chunk from
 them and runs the reverse recurrence (B6 on the card, ``ssm_scan_bwd_ref``
-on the CPU). ``bwd_impl="ref"`` instead differentiates the plain forward by
-autograd, the yardstick of the tests.
+on the CPU). The tests' yardstick is autograd through the plain forward,
+``ssm_scan_ref``, called directly.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ class _SSM(torch.autograd.Function):
                 dC.to(Cc.dtype), dD.to(D.dtype), dh0.to(ctx.h0_dtype))
 
 
-def ssm_scan(x, dt, A, Bc, Cc, D, h0, *, state_out=None, bwd_impl="kernel"):
+def ssm_scan(x, dt, A, Bc, Cc, D, h0, *, state_out=None):
     """Selective scan over any S >= 1. x, dt: (B,S,Di); A: (Di,N); Bc, Cc:
     (B,S,N); D: (Di,); h0: (B,Di,N) f32. Returns (y (B,S,Di) f32, hT
     (B,Di,N) f32).
@@ -59,8 +59,4 @@ def ssm_scan(x, dt, A, Bc, Cc, D, h0, *, state_out=None, bwd_impl="kernel"):
     if state_out is not None:
         raise ValueError("ssm_scan: state_out (an in-place state write) is "
                          "refused when a gradient is required")
-    if bwd_impl == "ref":
-        return ssm_scan_ref(x, dt, A, Bc, Cc, D, h0)
-    if bwd_impl != "kernel":
-        raise ValueError(f"bwd_impl={bwd_impl!r}; use 'kernel' or 'ref'")
     return _SSM.apply(x, dt, A, Bc, Cc, D, h0)

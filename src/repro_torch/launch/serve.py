@@ -7,13 +7,18 @@ serving fleet through the experiment API.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
       --smoke --device cpu                         # plain PyTorch path
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b  # RWKV-6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+      --smoke --device cpu                         # MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --scenario serve_yahoo \
       --quick --out artifacts/serve_yahoo.runresult.npz
 
-``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS`` (starcoder2-3b,
-gemma2-2b, rwkv6-3b; jamba-1.5-large-398b raises: its MoE layers are not
-ported, see ``repro_torch.models.decoder``). Weights are the port's own
-seeded init (``--seed``).
+``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``. Weights are
+the port's own seeded init (``--seed``). As in the reference's launcher, an
+audio config (musicgen-medium) prefills random frame embeddings and takes a
+fresh random embedding each decode step, and a vlm config (paligemma-3b)
+prefills ``prefix_len`` random image embeddings before the prompt and
+decodes from position ``prompt + prefix_len``; the random inputs come from
+``numpy.random.default_rng(--seed)``.
 
 ``--scenario`` runs ``repro_torch.exp.run(scenario, engine="serving")`` on
 the host (no card needed): the scenario's trace becomes the request stream
@@ -81,18 +86,34 @@ def main(argv=None):
     params = model.init(gen, device=device)
     rng = np.random.default_rng(args.seed)
     B, P, G = args.batch, args.prompt, args.gen
-    max_len = P + G
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, P)),
-                             device=device)
+    max_len = P + G + (cfg.prefix_len or 0)
+
+    def embeds(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                               device=device)
+
+    kw = {}
+    if cfg.family == "vlm":
+        kw["prefix_embeds"] = embeds(B, cfg.prefix_len, cfg.d_model)
+    if cfg.family == "audio":
+        kw["embeds"] = embeds(B, P, cfg.d_model)
+    else:
+        kw["tokens"] = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, P)),
+                                       device=device)
+    pos0 = P + (cfg.prefix_len if cfg.family == "vlm" else 0)
     with torch.inference_mode():
-        logits, cache = model.prefill(params, tokens=prompt, max_len=max_len)
+        logits, cache = model.prefill(params, max_len=max_len, **kw)
         tok = torch.argmax(logits, -1)[:, None]
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         outs = []
         for i in range(G):
-            logits, cache = model.decode_step(params, cache, tokens=tok, pos=P + i)
+            if cfg.family == "audio":
+                step = dict(embeds=embeds(B, 1, cfg.d_model))
+            else:
+                step = dict(tokens=tok)
+            logits, cache = model.decode_step(params, cache, pos=pos0 + i, **step)
             tok = torch.argmax(logits, -1)[:, None]
             outs.append(tok[:, 0])
         outs = torch.stack(outs).cpu().numpy()  # waits for the device

@@ -36,6 +36,11 @@ def make_train_step(model: DecoderLM, opt: AdamW,
     then ``.astype(f32) / M``. With M = 1 the buffer is the gradient
     itself, in the param dtype."""
     cfg = model.cfg
+    if any(spec.is_moe for spec in model.specs):
+        raise NotImplementedError(
+            f"{cfg.name}: training a config with MoE layers is not ported yet "
+            f"(the port serves MoE; MoE training is the next training slice, "
+            f"ROADMAP Queue A)")
     M = num_microbatches or cfg.num_microbatches
     acc_dt = torch_dtype(cfg.grad_acc_dtype)
 

@@ -8,9 +8,10 @@ checkpoints and handles simulated revocations.
       --steps 3 --device cpu                          # plain PyTorch path
 
 Training is ported for attention, RWKV-6 and Mamba/attention stacks
-(starcoder2-3b, rwkv6-3b). ``--arch jamba-1.5-large-398b`` raises naming
-MoE: the config has experts, which are not ported (``chip_smoke.py`` trains
-one block of it with experts off). Weights are the port's own seeded init
+(starcoder2-3b, rwkv6-3b). A config with MoE layers (mixtral-8x22b,
+llama4-scout-17b-a16e, jamba-1.5-large-398b) raises naming MoE: the port
+serves experts but does not train them yet (``chip_smoke.py`` trains one
+jamba block with experts off). Weights are the port's own seeded init
 (``--seed``). ``--preempt 8:1``
 revokes the card at step 8 and resumes on a replacement (one device only:
 meshes are ROADMAP Queue A item 11).

@@ -7,6 +7,7 @@ dict of tensors; each computes in the same precision as the reference
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -103,6 +104,18 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(positions, d_model: int):
+    """Classic transformer sinusoidal embedding. positions: (..., S) ->
+    (..., S, d), f32. A copy of the reference's, which no layer applies:
+    a config with ``pos_type="sinusoidal"`` (musicgen) runs with no
+    position term in both packages (ROADMAP Queue C)."""
+    half = d_model // 2
+    freqs = np.exp(-np.log(10000.0) * np.arange(half) / half)
+    freqs = torch.as_tensor(freqs, dtype=torch.float32, device=positions.device)
+    angles = positions.float()[..., None] * freqs  # (..., S, half)
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

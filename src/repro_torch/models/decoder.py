@@ -1,35 +1,48 @@
-"""Decoder LM for attention, RWKV-6 and Mamba/attention hybrid stacks (twin
-of ``repro.models.decoder``).
+"""Decoder LM for every stack of the registry: dense and MoE attention,
+RWKV-6, Mamba/attention hybrids with experts, audio over frame embeddings
+and a vision prefix before text (twin of ``repro.models.decoder``).
 
 The reference scans over parameter-stacked blocks; the port keeps the same
 block structure (``block_structure``) but stores one params dict per layer
 and runs the layers as a Python loop, in the reference's order (block i,
 position j is layer ``i * block_size + j``).
 
-Params: ``{"embed": (V, d), ["lm_head": (d, V)], ["ln0": {...}],
+Params: ``{["embed": (V, d)], ["lm_head": (d, V)], ["ln0": {...}],
 "final_norm": {...}, "layers": [...]}``; an attention layer is ``{"norm1",
-"norm2", "attn", "mlp", ["norm1_post", "norm2_post"]}``, a Mamba layer
-``{"norm1", "norm2", "mamba", "mlp"}``, an RWKV layer ``{"norm1", "norm2",
-"tm", "cm"}`` (time-mix and channel-mix, no MLP), and a stack with RWKV
-layers normalises its embeddings with ``ln0``. Params come
-either from the reference's weights (``repro_torch.convert.params_from_jax``)
-or from the port's own seeded ``init``.
+"norm2", "attn", "mlp" | "moe", ["norm1_post", "norm2_post"]}``, a Mamba
+layer ``{"norm1", "norm2", "mamba", "mlp" | "moe"}``, an RWKV layer
+``{"norm1", "norm2", "tm", "cm"}`` (time-mix and channel-mix, no MLP). A
+layer where ``spec.is_moe`` holds a ``moe`` dict (``router`` (d, E) in f32,
+``w_gate``/``w_up`` (E, d, ff), ``w_out`` (E, ff, d), ``shared`` for a
+shared expert) in place of ``mlp``. A stack with RWKV layers normalises its
+embeddings with ``ln0``; a config with ``embed_inputs=False`` (musicgen)
+has no ``embed`` and takes ``embeds``; ``lm_head`` is absent where the
+embedding is tied. Params come either from the reference's weights
+(``repro_torch.convert.params_from_jax``) or from the port's own seeded
+``init``.
+
+Inputs (``_embed_in``): ``tokens`` (B, S) through the embedding, or
+``embeds`` (B, S, d) as they are; ``prefix_embeds`` (B, P, d) go in front
+(paligemma's image patches, seen bidirectionally through
+``cfg.prefix_len``); ``embed_scale`` multiplies after the concatenation,
+then ``ln0``. ``pos_type="sinusoidal"`` (musicgen) adds no position term,
+as in the reference, which never applies ``sinusoidal_pos``.
 
 Four modes share one layer body: ``train`` (``forward``/``loss``: the full
 sequence, no caches, each block under ``torch.utils.checkpoint`` when
 ``cfg.remat == "full"``; attention layers through the differentiable flash
-op, Mamba layers through the differentiable selective scan),
+op, Mamba layers through the differentiable selective scan; the MoE
+layers' load-balancing losses summed into ``aux``),
 ``prefill`` (returns per-layer caches), ``decode`` (dense cache, one token
 per row, per-row positions) and ``decode_paged`` (paged pools + page
 table). An RWKV layer's cache is its state ``{"shift_tm", "shift_cm",
 "wkv"}``, a Mamba layer's ``{"conv", "ssm"}``; decode updates both in
 place. Neither has a position, so a stack with either takes neither the
 paged layout nor a bucketed (``true_len``) prefill, and raises there as the
-reference does. MoE MLPs are not ported: a config with MoE layers
-(``moe_period > 0``) raises at construction, so jamba-1.5-large-398b runs
-as ``replace(moe_period=0, num_experts=0, experts_per_token=0)``, every MoE
-FFN a dense SwiGLU of the published ``d_ff``, which is what the reference
-builds for that config.
+reference does. An MoE layer routes all the tokens of a call as one group
+(capacity counts them all), or each batch row alone with
+``decode_step(..., route_rows=True)``, the dense batcher's step (see
+``repro_torch.models.mlp``).
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ from repro_torch.models import rwkv as R
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        init_norm, softcap)
 from repro_torch.models.config import ModelConfig, block_structure
+from repro_torch.tree import leaves
 
 
 class DecoderLM:
@@ -67,11 +81,6 @@ class DecoderLM:
         self.cfg = cfg
         self.plain = plain
         self.block_size, self.n_blocks, self.specs = block_structure(cfg)
-        if any(s.is_moe for s in self.specs):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers (moe_period={cfg.moe_period}, "
-                f"num_experts={cfg.num_experts}) are not ported; build it with "
-                f"moe_period=0, num_experts=0, experts_per_token=0")
         self.layer_specs = [self.specs[j] for _ in range(self.n_blocks)
                             for j in range(self.block_size)]
 
@@ -115,12 +124,15 @@ class DecoderLM:
             if spec.mixer == "rwkv":
                 lp["tm"] = R.init_rwkv_tm(generator, cfg, dt, device)
                 lp["cm"] = R.init_rwkv_cm(generator, cfg, dt, device)
-            elif spec.mixer == "mamba":
-                lp["mamba"] = M.init_mamba(generator, cfg, dt, device)
-                lp["mlp"] = F.init_mlp(generator, cfg, dt, device)
             else:
-                lp["attn"] = A.init_attention(generator, cfg, dt, device)
-                lp["mlp"] = F.init_mlp(generator, cfg, dt, device)
+                if spec.mixer == "mamba":
+                    lp["mamba"] = M.init_mamba(generator, cfg, dt, device)
+                else:
+                    lp["attn"] = A.init_attention(generator, cfg, dt, device)
+                if spec.is_moe:
+                    lp["moe"] = F.init_moe(generator, cfg, dt, device)
+                else:
+                    lp["mlp"] = F.init_mlp(generator, cfg, dt, device)
             if cfg.post_norm:
                 lp["norm1_post"] = init_norm(cfg, dt, device)
                 lp["norm2_post"] = init_norm(cfg, dt, device)
@@ -128,17 +140,38 @@ class DecoderLM:
         params["layers"] = layers
         return params
 
+    def param_count(self) -> int:
+        """Parameters of the whole tree, from a ``meta`` init."""
+        shapes = self.init(torch.Generator(), device="meta")
+        return sum(t.numel() for t in leaves(shapes))
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only the routed share of the
+        experts counts, ``experts_per_token / num_experts``)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if cfg.num_experts == 0:
+            return total
+        shapes = self.init(torch.Generator(), device="meta")
+        expert_leaves = sum(lp["moe"][name].numel() for lp in shapes["layers"]
+                            if "moe" in lp for name in ("w_gate", "w_up", "w_out"))
+        active_frac = cfg.experts_per_token / cfg.num_experts
+        return int(total - expert_leaves * (1.0 - active_frac))
+
     # ----------------------------------------------------------------- layers
 
     def _apply_layer(self, lp, x, spec, *, mode, positions=None, cache=None,
-                     pos=None, max_len=None, true_len=None, pages=None):
+                     pos=None, max_len=None, true_len=None, pages=None,
+                     route_rows=False):
+        """Returns (x, new_cache, aux): aux is the layer's MoE
+        load-balancing loss (an f32 scalar), None for a dense FFN."""
         cfg = self.cfg
         if spec.mixer != "attn" and (mode == "decode_paged" or true_len is not None):
             raise NotImplementedError(
                 f"paged decode / bucketed (true_len) prefill support attention "
                 f"layers only, got mixer={spec.mixer!r}; use the dense path")
         if spec.mixer == "rwkv":
-            return self._apply_rwkv_layer(lp, x, mode=mode, cache=cache)
+            return self._apply_rwkv_layer(lp, x, mode=mode, cache=cache) + (None,)
         h = apply_norm(lp["norm1"], x, cfg)
         if mode == "train":
             new_cache = None
@@ -167,10 +200,14 @@ class DecoderLM:
             y = apply_norm(lp["norm1_post"], y, cfg)
         x = x + y
         h = apply_norm(lp["norm2"], x, cfg)
-        y = F.apply_mlp(lp["mlp"], h, cfg)
+        aux = None
+        if spec.is_moe:
+            y, aux = F.apply_moe(lp["moe"], h, cfg, route_rows=route_rows)
+        else:
+            y = F.apply_mlp(lp["mlp"], h, cfg)
         if cfg.post_norm:
             y = apply_norm(lp["norm2_post"], y, cfg)
-        return x + y, new_cache
+        return x + y, new_cache, aux
 
     def _apply_rwkv_layer(self, lp, x, *, mode, cache):
         """Prefill returns a new state; decode updates ``cache`` in place
@@ -203,7 +240,9 @@ class DecoderLM:
 
     def _train_stack(self, params, x):
         """The train-mode stack, block by block (the reference scans over
-        blocks and wraps each in ``jax.checkpoint`` under ``remat``)."""
+        blocks and wraps each in ``jax.checkpoint`` under ``remat``).
+        Returns (x, aux): aux sums the MoE layers' losses in f32, block by
+        block as the reference's scan carry does."""
         remat = self.cfg.remat
         if remat == "dots":
             raise NotImplementedError(
@@ -212,32 +251,46 @@ class DecoderLM:
         if remat not in ("full", "none"):
             raise ValueError(f"remat={remat!r}")
         bs = self.block_size
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.n_blocks):
             layers = list(zip(params["layers"][i * bs:(i + 1) * bs],
                               self.layer_specs[i * bs:(i + 1) * bs]))
 
             def block(x, layers=layers):
+                aux_b = torch.zeros((), dtype=torch.float32, device=x.device)
                 for lp, spec in layers:
-                    x, _ = self._apply_layer(lp, x, spec, mode="train")
-                return x
+                    x, _, a = self._apply_layer(lp, x, spec, mode="train")
+                    if a is not None:
+                        aux_b = aux_b + a
+                return x, aux_b
 
-            x = checkpoint(block, x, use_reentrant=False) if remat == "full" else block(x)
-        return x
+            x, aux_b = (checkpoint(block, x, use_reentrant=False) if remat == "full"
+                        else block(x))
+            aux = aux + aux_b
+        return x, aux
 
     def _stack(self, params, x, mode, caches=None, **kw):
         new_caches = []
         for i, (lp, spec) in enumerate(zip(params["layers"], self.layer_specs)):
             entry = None if caches is None else caches[i]
-            x, nc = self._apply_layer(lp, x, spec, mode=mode, cache=entry, **kw)
+            x, nc, _ = self._apply_layer(lp, x, spec, mode=mode, cache=entry, **kw)
             new_caches.append(nc)
         return x, new_caches
 
     # ------------------------------------------------------------- embeddings
 
-    def _embed_in(self, params, tokens):
+    def _embed_in(self, params, tokens=None, embeds=None, prefix_embeds=None):
+        """tokens (B,S) through the embedding, or embeds (B,S,d) where the
+        config takes no tokens; prefix_embeds (B,P,d) in front; then
+        ``embed_scale`` and ``ln0``."""
         cfg = self.cfg
         dt = self.dtype
-        x = Fn.embedding(tokens.long(), params["embed"]).to(dt)
+        if cfg.embed_inputs:
+            x = Fn.embedding(tokens.long(), params["embed"]).to(dt)
+        else:
+            x = embeds.to(dt)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(dt), x], dim=1)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
         if "ln0" in params:
@@ -291,52 +344,81 @@ class DecoderLM:
 
     # ----------------------------------------------------------------- public
 
-    def forward(self, params, tokens):
-        """Full training/scoring forward. tokens: (B,S). Returns (logits
-        (B,S,V), aux loss): aux is the MoE load-balancing loss, 0 here (no
-        MoE layer is ported)."""
-        x = self._train_stack(params, self._embed_in(params, tokens))
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    def forward(self, params, tokens=None, *, embeds=None, prefix_embeds=None):
+        """Full training/scoring forward over tokens (B,S), or embeds
+        (B,S,d), after prefix_embeds (B,P,d) if given. Returns (logits
+        (B,P+S,V), aux): aux is the sum of the MoE layers' load-balancing
+        losses, 0 without MoE layers."""
+        x = self._embed_in(params, tokens, embeds, prefix_embeds)
+        x, aux = self._train_stack(params, x)
         return self._unembed(params, x), aux
 
     def loss(self, params, batch):
-        """Next-token cross-entropy in f32 over ``batch["tokens"]`` (B,S), the
-        last position masked, plus ``router_aux_coef * aux``. Returns (loss,
-        {"loss", "ce", "aux"}). Token batches only: the audio and vlm
-        families are not ported."""
+        """Next-token cross-entropy in f32 plus ``router_aux_coef * aux``.
+        Batch layout per family, as the reference's:
+
+        lm:    {"tokens": (B,S)}, the last position masked;
+        audio: {"embeds": (B,S,d), "labels": (B,S)} (labels pre-aligned);
+        vlm:   {"prefix_embeds": (B,P,d), "tokens": (B,S_text)}, labels the
+               text shifted by one, counted from position P-1 to the
+               second last.
+
+        Returns (loss, {"loss", "ce", "aux"})."""
         cfg = self.cfg
-        if cfg.family in ("audio", "vlm"):
-            raise NotImplementedError(f"{cfg.family} batches are not ported")
-        tokens = batch["tokens"]
-        logits, aux = self.forward(params, tokens)
-        labels = torch.roll(tokens, -1, dims=1).long()
-        S = tokens.shape[1]
-        mask = (torch.arange(S, device=logits.device) < S - 1).float()
-        mask = mask[None].expand(labels.shape)
+        if cfg.family == "audio":
+            logits, aux = self.forward(params, embeds=batch["embeds"])
+            labels = torch.as_tensor(batch["labels"]).to(logits.device).long()
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+        elif cfg.family == "vlm":
+            tokens = batch["tokens"]
+            logits, aux = self.forward(params, tokens,
+                                       prefix_embeds=batch["prefix_embeds"])
+            P = batch["prefix_embeds"].shape[1]
+            full = torch.cat([torch.zeros((tokens.shape[0], P), dtype=torch.int64,
+                                          device=logits.device), tokens.long()], dim=1)
+            labels = torch.roll(full, -1, dims=1)
+            S = full.shape[1]
+            idx = torch.arange(S, device=logits.device)
+            mask = ((idx >= P - 1) & (idx < S - 1)).float()[None].expand(labels.shape)
+        else:
+            tokens = batch["tokens"]
+            logits, aux = self.forward(params, tokens)
+            labels = torch.roll(tokens, -1, dims=1).long()
+            S = tokens.shape[1]
+            mask = (torch.arange(S, device=logits.device) < S - 1).float()
+            mask = mask[None].expand(labels.shape)
         lp = torch.log_softmax(logits.float(), dim=-1)
         ce = -torch.gather(lp, -1, labels[..., None])[..., 0]
         ce = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         loss = ce + cfg.router_aux_coef * aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
-    def prefill(self, params, *, tokens, max_len=None, true_len=None):
-        """tokens: (B,S). Returns (last-token logits (B,V), caches).
-        ``max_len`` sizes the caches for the decode that follows (default S).
-        ``true_len`` marks a right-padded bucketed prompt: logits come from
-        position ``true_len - 1`` and pad slots carry pos=-1."""
-        x = self._embed_in(params, tokens)
+    def prefill(self, params, *, tokens=None, embeds=None, prefix_embeds=None,
+                max_len=None, true_len=None):
+        """tokens (B,S) or embeds (B,S,d), after prefix_embeds (B,P,d) if
+        given. Returns (last-token logits (B,V), caches). ``max_len`` sizes
+        the caches for the decode that follows (default: the prefilled
+        length, prefix included). ``true_len`` marks a right-padded
+        bucketed prompt: logits come from position ``true_len - 1`` and pad
+        slots carry pos=-1."""
+        x = self._embed_in(params, tokens, embeds, prefix_embeds)
         positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
         x, caches = self._stack(params, x, "prefill", positions=positions,
                                 max_len=max_len, true_len=true_len)
         last = x[:, -1:] if true_len is None else x[:, int(true_len) - 1:int(true_len)]
         return self._unembed(params, last)[:, 0], caches
 
-    def decode_step(self, params, cache, *, tokens, pos):
-        """One dense decode step. tokens: (B,1); pos: an int shared by the
-        batch or a (B,) tensor of per-row positions. Caches update in place.
-        Returns (logits (B,V), caches)."""
-        x = self._embed_in(params, tokens)
-        x, caches = self._stack(params, x, "decode", caches=cache, pos=pos)
+    def decode_step(self, params, cache, *, tokens=None, embeds=None, pos,
+                    route_rows=False):
+        """One dense decode step. tokens (B,1) or embeds (B,1,d); pos: an
+        int shared by the batch or a (B,) tensor of per-row positions.
+        Caches update in place. MoE layers route the B tokens as one group,
+        or each row alone with ``route_rows`` (the reference's vmap of a
+        one-row step, which its dense batcher runs). Returns (logits (B,V),
+        caches)."""
+        x = self._embed_in(params, tokens, embeds)
+        x, caches = self._stack(params, x, "decode", caches=cache, pos=pos,
+                                route_rows=route_rows)
         return self._unembed(params, x)[:, 0], caches
 
     def decode_step_paged(self, params, pools, *, tokens, pos_vec, pages):

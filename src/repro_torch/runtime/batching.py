@@ -22,7 +22,18 @@ Two KV layouts (``kv_layout``):
 
 Gathering a slot's pages reproduces its dense cache exactly, so both layouts
 generate identical tokens (on the card too: the dense and paged decode
-kernels share one device routine).
+kernels share one device routine) for every stack without experts.
+
+MoE layers route under a capacity that counts the tokens routed together,
+and the two layouts group them as the reference does: the paged step
+routes all ``max_slots`` rows as one group (free slots too, on their stale
+tokens), the dense step each row alone (the reference vmaps a one-row
+step; here ``decode_step(..., route_rows=True)``), and a bucketed prefill
+routes its pad tokens after the prompt's. An expert that more rows pick
+than its capacity drops an assignment in the paged step and never in the
+dense one, so the two layouts may differ in tokens, in the reference as in
+the port (ROADMAP Queue C); each request's first token, from the prefill,
+is the same in both.
 
 A stack that is not pure attention (RWKV-6, or jamba's Mamba/attention
 hybrid) runs dense only (paged raises ``NotImplementedError``, as in the
@@ -331,7 +342,8 @@ class ContinuousBatcher:
                 pages=table)
         else:
             logits, self.cache_slots = self.model.decode_step(
-                self.params, self.cache_slots, tokens=self.last_tok, pos=pos_vec)
+                self.params, self.cache_slots, tokens=self.last_tok, pos=pos_vec,
+                route_rows=True)
         next_tok = torch.argmax(logits, dim=-1)
         toks = next_tok.cpu().numpy()
         for slot, req in self.slots.items():

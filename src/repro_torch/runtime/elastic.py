@@ -1,6 +1,7 @@
 """Elastic, fault-tolerant training executor on one card (twin of
-``repro.runtime.elastic.ElasticTrainer``). It trains any stack the port
-builds: attention, RWKV-6 and Mamba/attention (experts are not ported).
+``repro.runtime.elastic.ElasticTrainer``). It trains attention, RWKV-6 and
+Mamba/attention stacks; a config with MoE layers is served but not yet
+trained (``launch.steps.make_train_step`` refuses it, naming MoE).
 
 A revocation notice (``preempt_at``) runs the reference's discipline:
     finish the current step -> blocking checkpoint -> release the state ->

@@ -180,6 +180,56 @@ def test_dense_and_paged_kernels_bitwise_identical(cuda, dtype):
     assert torch.equal(dense, paged)
 
 
+# ---- the new model families' head groupings (B1, B2, B3)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,KV,hd,kw", [
+    (48, 8, 128, dict(window=64)),     # mixtral: 6 query heads a kv head
+    (40, 8, 128, dict(window=96)),     # llama4: 5
+    (56, 8, 128, dict()),              # deepseek-coder, yi: 7
+    (24, 24, 64, dict()),              # musicgen: MHA at hd 64
+    (8, 1, 256, dict(prefix_len=64)),  # paligemma: MQA at hd 256, an image prefix
+], ids=["g6_mixtral", "g5_llama4", "g7_deepseek_yi", "g1_musicgen", "g8_paligemma"])
+def test_attention_kernels_at_new_head_groups(cuda, dtype, H, KV, hd, kw):
+    """Flash prefill, dense decode and paged decode at each new family's
+    (H, KV, hd): groups that are not powers of two, MHA, and MQA with a
+    bidirectional prefix (the prefill's prefix keys seen by every query,
+    the decode's through the bias)."""
+    gen = torch.Generator(device=cuda).manual_seed(30 + H)
+    S = 64 + 133
+    q, k, v = (_randn(gen, (1, S, n, hd), dtype, cuda).transpose(1, 2) for n in (H, KV, KV))
+    reset_counts()
+    o = flash_attention_fwd(q, k, v, **kw)
+    assert LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(o.float(), attention_ref(q, k, v, **kw).float(),
+                               atol=_tol(dtype), rtol=_tol(dtype))
+    B, bs, P = 4, 16, 20
+    L = P * bs
+    q = _randn(gen, (B, H, hd), dtype, cuda)
+    kc = _randn(gen, (B, L, KV, hd), dtype, cuda)
+    vc = _randn(gen, (B, L, KV, hd), dtype, cuda)
+    valid = torch.tensor([L, 213, 17, 1], device=cuda)
+    ok = torch.arange(L, device=cuda)[None] < valid[:, None]
+    window, prefix = kw.get("window", 0), kw.get("prefix_len", 0)
+    if window:  # the decode query at position valid-1 sees the last `window` keys
+        ok &= torch.arange(L, device=cuda)[None] >= valid[:, None] - window
+    if prefix:
+        ok |= torch.arange(L, device=cuda)[None] < prefix
+    bias = torch.where(ok, 0.0, NEG_INF).float()
+    o = decode_attention_fwd(q, kc.transpose(1, 2), vc.transpose(1, 2), bias)
+    torch.testing.assert_close(
+        o.float(), decode_attention_ref(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                        bias).float(), atol=_tol(dtype), rtol=_tol(dtype))
+    table = (torch.randperm(B * P, generator=gen, device=cuda) + 2).reshape(B, P)
+    kp = torch.zeros((2 + B * P, bs, KV, hd), dtype=dtype, device=cuda)
+    vp = torch.zeros_like(kp)
+    kp[table.long()] = kc.reshape(B, P, bs, KV, hd)
+    vp[table.long()] = vc.reshape(B, P, bs, KV, hd)
+    paged = paged_decode_attention_fwd(q, kp, vp, table.to(torch.int32), bias)
+    assert torch.equal(paged, o)
+    assert LAUNCHES["decode_attention"] == 1 and LAUNCHES["paged_decode_attention"] == 1
+
+
 # ---- the split-KV decode routine (B1/B3): splits, head groups, tails
 
 def _decode_case(gen, dev, dtype, B, KV, G, L, hd, null_row=False):
@@ -613,7 +663,7 @@ def test_rwkv6_op_gradients_equal_autograd_through_plain(cuda, S):
     grads = []
     for impl in ("kernel", "ref"):
         leaves = [a.clone().requires_grad_(True) for a in args]
-        y, sT = rwkv6_scan(*leaves, bwd_impl=impl)
+        y, sT = (rwkv6_scan if impl == "kernel" else rwkv6_scan_ref)(*leaves)
         grads.append(torch.autograd.grad((y * dy).sum() + (sT * dsT).sum(), leaves))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=BWD_TOL, rtol=BWD_TOL)
@@ -868,7 +918,7 @@ def test_ssm_op_gradients_equal_autograd_through_plain(cuda, S):
     for impl in ("kernel", "ref"):
         leaves = [a.clone().requires_grad_(True) for a in args]
         reset_counts()
-        y, hT = ssm_scan(*leaves, bwd_impl=impl)
+        y, hT = (ssm_scan if impl == "kernel" else ssm_scan_ref)(*leaves)
         grads.append(torch.autograd.grad((y * dy).sum() + (hT * dhT).sum(), leaves))
         assert LAUNCHES["ssm_scan_bwd"] == (impl == "kernel")
         assert PLAIN_CALLS["ssm_scan_bwd"] == 0
@@ -1167,3 +1217,56 @@ def test_arrivals_sampler_on_the_card_matches_cpu(cuda, name):
     assert np.array_equal(card, batch_sample_counts(proc, seeds, H, dt, device=cuda))
     assert np.array_equal(batch_sample_counts(proc, [7], H, dt, device=cuda)[0], card[7])
     assert abs(card.mean() / dt - proc.mean_rate(H)) <= 0.1 * proc.mean_rate(H)
+
+
+# ---- the model families on the card: kernel path vs the CPU's plain path
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e",
+                                  "musicgen-medium", "paligemma-3b"])
+def test_model_families_on_the_card_match_the_cpu(cuda, arch):
+    """Smoke configs in f32, one set of weights: prefill and 3 dense decode
+    steps on the card (B2, B3) against the same on the CPU, within the
+    reference's model tolerance (5e-4); the MoE layers route alike."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+
+    cfg = smoke_config(arch)
+    m = build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = _to(params, cuda)
+    rng = np.random.default_rng(1)
+    B, S = 2, 37
+    kw = {}
+    if cfg.family == "audio":
+        kw["embeds"] = torch.as_tensor(rng.normal(size=(B, S, cfg.d_model)),
+                                       dtype=torch.float32)
+    else:
+        kw["tokens"] = torch.as_tensor(rng.integers(1, cfg.vocab_size, (B, S)))
+    if cfg.family == "vlm":
+        kw["prefix_embeds"] = torch.as_tensor(
+            rng.normal(size=(B, cfg.prefix_len, cfg.d_model)), dtype=torch.float32)
+    P = S + cfg.prefix_len
+    reset_counts()
+    with torch.inference_mode():
+        lc, cc = m.prefill(params, max_len=P + 4, **kw)
+        lg, cg = m.prefill(on_card, max_len=P + 4, **_to(kw, cuda))
+        torch.testing.assert_close(lg.cpu(), lc, atol=5e-4, rtol=5e-4)
+        for t in range(3):
+            if cfg.family == "audio":
+                step = dict(embeds=torch.as_tensor(rng.normal(size=(B, 1, cfg.d_model)),
+                                                   dtype=torch.float32))
+            else:
+                step = dict(tokens=torch.argmax(lc, -1)[:, None])
+            lc, cc = m.decode_step(params, cc, pos=P + t, **step)
+            lg, cg = m.decode_step(on_card, cg, pos=P + t, **_to(step, cuda))
+            torch.testing.assert_close(lg.cpu(), lc, atol=5e-4, rtol=5e-4)
+    assert LAUNCHES["flash_attention"] == cfg.num_layers
+    assert LAUNCHES["decode_attention"] == 3 * cfg.num_layers
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

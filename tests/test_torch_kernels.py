@@ -541,6 +541,13 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.examples.serve_multitenant"} <= names
     # the twins of the JAX package's quickstart and trace_replay examples
     assert {"repro_torch.examples.quickstart", "repro_torch.examples.trace_replay"} <= names
+    # the ten model families' configs, the MoE layer and the decoder
+    assert {"repro_torch.configs.mixtral_8x22b", "repro_torch.configs.llama4_scout_17b_a16e",
+            "repro_torch.configs.deepseek_coder_33b", "repro_torch.configs.yi_34b",
+            "repro_torch.configs.musicgen_medium", "repro_torch.configs.paligemma_3b",
+            "repro_torch.configs.registry", "repro_torch.models.mlp",
+            "repro_torch.models.decoder", "repro_torch.models.common",
+            "repro_torch.convert"} <= names
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

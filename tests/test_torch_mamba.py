@@ -37,8 +37,10 @@ from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts  # noqa: E402
 from repro_torch.kernels.ssm_scan.ops import ssm_scan  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import mamba as M  # noqa: E402
+from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.runtime.batching import ContinuousBatcher, GenRequest  # noqa: E402
 
 ARCH = "jamba-1.5-large-398b"
@@ -200,9 +202,9 @@ def test_mamba_prefill_and_decode_match_reference(S):
 
 def test_mamba_train_raises():
     """``mamba_train`` (from a zero state, no cache) matches the reference's
-    within 5e-4; the jamba config with its experts still raises in
-    training, naming MoE (tests/test_torch_mamba_train.py holds the
-    gradients)."""
+    within 5e-4; the jamba config with its experts scores a batch (its
+    ``loss`` adds the experts' aux loss) but still raises in training,
+    naming MoE (tests/test_torch_mamba_train.py holds the gradients)."""
     jcfg, jp, tp = _block_params(5)
     cfg = smoke_config(ARCH).replace(**NO_MOE)
     x = np.random.default_rng(6).normal(size=(2, 37, cfg.d_model)).astype(np.float32)
@@ -210,9 +212,12 @@ def test_mamba_train_raises():
     y = M.mamba_train(tp, _t(x), cfg)
     assert PLAIN_CALLS["ssm_scan"] == 1
     _close(y, JM.mamba_train(jp, jnp.asarray(x), jcfg), TOL)
+    moe = build_model(smoke_config(ARCH))
+    params = moe.init(torch.Generator().manual_seed(0), device="cpu")
+    _, parts = moe.loss(params, {"tokens": torch.ones((1, 8), dtype=torch.int64)})
+    assert torch.isfinite(parts["loss"]) and float(parts["aux"]) > 0
     with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(smoke_config(ARCH)).loss(
-            _port_params(), {"tokens": torch.ones((1, 8), dtype=torch.int64)})
+        make_train_step(moe, AdamW(lr=1e-3))
 
 
 # ---------------------------------------------------------------- DecoderLM

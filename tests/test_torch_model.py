@@ -15,6 +15,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCH_IDS as J_ARCH_IDS  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import smoke_config as j_smoke  # noqa: E402
 from repro.models import attention as JA  # noqa: E402
@@ -44,7 +45,7 @@ def _close(t, j, atol=TOL):
                                atol=atol, rtol=atol)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-3b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", J_ARCH_IDS)
 def test_config_copies_equal_reference(arch):
     """The port keeps its own copies of ModelConfig / the arch configs /
     smoke_config; they equal the reference field for field."""
@@ -102,8 +103,10 @@ def test_apply_mlp_matches_reference(mlp_type, use_bias):
     x = np.random.default_rng(2).normal(size=(2, 6, cfg.d_model)).astype(np.float32)
     _close(M.apply_mlp(tp, torch.from_numpy(x), cfg),
            JM.apply_mlp(jp, jnp.asarray(x), jcfg), atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        M.apply_mlp(tp, torch.from_numpy(x), cfg.replace(num_experts=4))
+    # the dense MLP ignores the expert fields, as the reference's does (a
+    # shared expert of an MoE config is such a dense MLP)
+    _close(M.apply_mlp(tp, torch.from_numpy(x), cfg.replace(num_experts=4)),
+           JM.apply_mlp(jp, jnp.asarray(x), jcfg.replace(num_experts=4)), atol=1e-5)
 
 
 # ------------------------------------------------------ attention entry points
@@ -273,20 +276,42 @@ def test_decoder_bucketed_prefill_and_paged_decode_match_reference(arch):
         tok = np.array([[int(np.argmax(np.asarray(jl)[0]))]])
 
 
-def test_decoder_refuses_unported_mixers_and_default_device():
-    """MoE layers are not ported: a jamba config with its experts raises,
-    naming MoE, in ``build_model`` and in the serving launcher. Entry
-    points default to cuda and raise without a card."""
+def test_decoder_refuses_unported_mixers_and_default_device(tmp_path):
+    """jamba's smoke config with its experts builds, and the serving
+    launcher serves it. What the port still refuses: ``remat="dots"``, more
+    than one device, and training a config with experts (the trainer
+    refuses it, naming MoE, until the training slice). Entry points
+    default to cuda and raise without a card."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.elastic import _one_device
+
+    jamba = build_model(smoke_config("jamba-1.5-large-398b"))
+    assert sum("moe" in lp for lp in jamba.init(
+        torch.Generator(), device="meta")["layers"]) == jamba.cfg.num_layers // 2
+    serve_main(["--arch", "jamba-1.5-large-398b", "--smoke", "--device", "cpu",
+                "--batch", "2", "--prompt", "5", "--gen", "2"])
+    with pytest.raises(NotImplementedError, match="dots"):
+        build_model(smoke_config("starcoder2-3b").replace(remat="dots")).forward(
+            build_model(smoke_config("starcoder2-3b")).init(
+                torch.Generator().manual_seed(0), device="cpu"),
+            torch.ones((1, 4), dtype=torch.int64))
+    with pytest.raises(NotImplementedError, match="devices"):
+        _one_device(["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(smoke_config("jamba-1.5-large-398b"))
+        make_train_step(jamba, AdamW(lr=1e-3))
     with pytest.raises(NotImplementedError, match="MoE"):
-        serve_main(["--arch", "jamba-1.5-large-398b", "--smoke", "--device", "cpu"])
+        train_main(["--arch", "mixtral-8x22b", "--smoke", "--steps", "1",
+                    "--device", "cpu", "--ckpt-dir", str(tmp_path / "ck")])
     m = build_model(smoke_config("starcoder2-3b"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             m.init(torch.Generator().manual_seed(0))  # default device: cuda
         with pytest.raises(RuntimeError):
             m.init_cache(1, 16)
+        with pytest.raises(RuntimeError):
+            jamba.init(torch.Generator().manual_seed(0))
     params = m.init(torch.Generator().manual_seed(0), device="cpu")
     assert len(params["layers"]) == m.cfg.num_layers
     assert params["embed"].shape == (m.cfg.vocab_size, m.cfg.d_model)

@@ -145,7 +145,7 @@ def test_op_gradients_equal_autograd_through_plain(S):
     for impl in ("kernel", "ref"):
         leaves = [_t(a).requires_grad_(True) for a in (r, k, v, w, u, s0)]
         reset_counts()
-        y, sT = rwkv6_scan(*leaves, bwd_impl=impl)
+        y, sT = (rwkv6_scan if impl == "kernel" else rwkv6_scan_ref)(*leaves)
         grads.append(torch.autograd.grad((y * _t(dy)).sum() + (sT * _t(dsT)).sum(),
                                          leaves))
         assert PLAIN_CALLS["rwkv6_scan_bwd"] == (impl == "kernel")
