@@ -24,8 +24,13 @@ checkout of the repository. Phases (none catches its own failure):
    (H=KV=24, hd=64); paligemma (H=8, KV=1, hd=256 with its
    256-embedding prefix, S=256+513), B3 over 4 slots of 8192 positions.
    B1 runs on B3's cache through a shuffled page table and must equal it
-   bit for bit. Decode bounds count the visible keys only (the kernels
-   read every position). Tolerances atol 2e-5 for f32 and int8-dequantised
+   bit for bit. B2 with its softmax statistics (``stats=True``, the
+   ``flash_attention_stats`` row) at phase 12's training shape (mixtral's
+   layout, one 8192-token row), bf16 and f32: out, m and l against the
+   plain chunked online softmax (512 x 1024 chunks), its output equal to
+   the launch without statistics bit for bit, timed beside that launch.
+   Decode bounds count the visible keys only (the kernels read every
+   position). Tolerances atol 2e-5 for f32 and int8-dequantised
    pools, 2e-2 for bf16. The RWKV-6 scan at rwkv6-3b's (H=40, hd=64): a
    4500-token prefill and a 4-slot decode step in bf16, an f32 prefill, and
    the plan's value-column split bitwise equal to two others (4 and 16);
@@ -195,6 +200,24 @@ checkout of the repository. Phases (none catches its own failure):
    and step. A ``families`` JSON line goes before the kernel table, and
    (a)'s and (c)'s launches join its counts. The phase must end within
    120 s.
+12. MoE training — mixtral-8x22b at full width, 1 of its 56 layers with
+   every expert (``MOE_TRAIN``: 2.907 B parameters, 5.8 GB bf16), under its
+   optimized training variant (``configs/optimized.py``: 2 microbatches,
+   flash_vjp), remat "full", f32 moments and accumulation. (a) bf16, 3
+   steps of 2 x 8192 tokens through ``ElasticTrainer`` (``train_phase``; no
+   revocation: its checkpoint would be ~29 GB). Counts zeroed before the
+   run: 3 x 2 x 2 = 12 launches of B2 with statistics (forward and remat
+   recompute), 6 chunked backward calls, no plain call; step time,
+   tokens/s, peak memory, busy share and top kernels of one step; the
+   first step's dropped expert assignments counted in an untimed forward
+   with the MoE layer's record on. (c) One 8192-token microbatch of (a)'s
+   model under remat "dots" against "full": loss and every gradient leaf
+   within 2e-4 of its max, the peak bytes of each. (b) f32 gradients of
+   one 2048-token row, kernel path (B2 with statistics, the chunked
+   backward) against the plain path: every leaf within 2e-4 of its max, no
+   routing choice differing. A ``moe_training`` JSON line goes before the
+   kernel table, and (a)'s launches join its counts as the
+   ``moe_training`` path. The phase must end within 120 s.
 
 ``--jamba-grad-study SEED [SEED ...]`` builds the kernels and runs only
 ``jamba_grad_phase`` for each seed, printing how far each mixer leaf lies
@@ -216,9 +239,9 @@ phase releases what it allocated; the script checks that less than 1 GB is
 left allocated before each model phase, so the 80 GB card holds one
 phase's peak at a time. The last lines are the fleet summary (JSON), the
 serving fleet's summary (JSON), the serving_torch summary (JSON), the
-arrivals summary (JSON), the families summary (JSON), the kernel table
-(JSON), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+arrivals summary (JSON), the families summary (JSON), the MoE training
+summary (JSON), the kernel table (JSON), the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -410,6 +433,10 @@ DECODE_CASES = (
     dict(layout="paligemma-3b"),
 )
 PAGE = 16                     # the batcher's KV block size
+# B2 with its softmax statistics at phase 12's training shape: one row of
+# mixtral-8x22b's 2 x 8192 batch in each of its 2 microbatches, against the
+# plain chunked online softmax at the config's attention chunks
+FLASH_STATS_CASE = dict(layout="mixtral-8x22b", S=8192, chunk_q=512, chunk_k=1024)
 
 
 def _case_layout(case):
@@ -440,7 +467,8 @@ def kernel_phase(dev):
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, paged_decode_attention_ref)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-    from repro_torch.kernels.flash_attention.ref import allowed, attention_ref
+    from repro_torch.kernels.flash_attention.ref import (allowed, attention_ref,
+                                                        chunked_attention_ref)
     from repro_torch.optim.compress import quantize_int8
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -493,6 +521,39 @@ def kernel_phase(dev):
                           f"{f'window={W}' if W else 'global'} bf16"))
                 del mask, lib
             del q, k, v, o
+
+    log("kernel phase: flash_attention with softmax statistics (B2, stats=True)")
+    label, H, KV, hd, W, prefix = _case_layout(FLASH_STATS_CASE)
+    S, cq, ck = (FLASH_STATS_CASE[n] for n in ("S", "chunk_q", "chunk_k"))
+    kw = dict(window=W, prefix_len=prefix)
+    for dtype in (bf16, f32):
+        q, k, v = (randn((1, S, n, hd), dtype).transpose(1, 2) for n in (H, KV, KV))
+        got = flash_attention_fwd(q, k, v, **kw, stats=True)
+        ref = chunked_attention_ref(q, k, v, chunk_q=cq, chunk_k=ck, **kw)
+        err = max(held("flash_attention_stats", f"flash stats {dtype} {label} S={S} "
+                       f"window={W} {part}", a, b, dtype)
+                  for part, a, b in zip(("out", "m", "l"), got, ref))
+        if not torch.equal(got[0], flash_attention_fwd(q, k, v, **kw)):
+            raise AssertionError(f"flash stats {dtype}: the output differs from the "
+                                 f"launch without statistics")
+        if dtype == bf16:
+            mask = allowed(S, S, dev, window=W, prefix_len=prefix)
+            pairs = int(mask.sum())
+            add_row("flash_attention_stats", "", f"{label} S={S} (training)", dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw, stats=True), 5),
+                nostats_ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw), 5),
+                plain_ms=time_ms(lambda: chunked_attention_ref(
+                    q, k, v, chunk_q=cq, chunk_k=ck, **kw), 2),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), 5),
+                **bound(nbytes(q, k, v, *got), 4 * H * hd * pairs, "bfloat16"),
+                shape=f"B=1 H={H} KV={KV} S={S} hd={hd} window={W} bf16, m and l "
+                      f"(B,H,S) f32"))
+            log(f"  flash_attention_stats: the same call without statistics "
+                f"{rows['flash_attention_stats']['nostats_ms']:.4f} ms")
+            del mask
+        del q, k, v, got, ref
 
     log("kernel phase: decode_attention (B3) and paged_decode_attention (B1)")
     for case in DECODE_CASES:
@@ -1411,20 +1472,24 @@ def f32_phase(dev, seed, cfg):
 def expected_train_counts(model, n_microbatch_steps):
     """Kernel launches and backward calls one training run must make: per
     microbatch, every scan and attention layer's forward once, twice under
-    remat "full" (the recompute), and its backward once."""
-    fwd = 2 if model.cfg.remat == "full" else 1
+    remat "full" or "dots" (the recompute), and its backward once. Under
+    ``flash_vjp`` attention's forward is B2 with statistics and its
+    backward the chunked recompute."""
+    fwd = 1 if model.cfg.remat == "none" else 2
+    vjp = model.cfg.flash_vjp
     mixers = [s.mixer for s in model.layer_specs]
     launches, bwd_calls = {}, {}
     for mixer, name, bwd in (("rwkv", "rwkv6_scan", "rwkv6_scan_bwd"),
                              ("mamba", "ssm_scan", "ssm_scan_bwd"),
-                             ("attn", "flash_attention", None)):
+                             ("attn", "flash_attention_stats" if vjp else "flash_attention",
+                              None)):
         n = n_microbatch_steps * mixers.count(mixer)
         if n:
             launches[name] = fwd * n
             if bwd:
                 launches[bwd] = n
             else:
-                bwd_calls["flash_attention_bwd"] = n
+                bwd_calls["flash_attention_bwd_chunked" if vjp else "flash_attention_bwd"] = n
     return launches, bwd_calls
 
 
@@ -3050,6 +3115,149 @@ def families_phase(dev, seed):
 
 
 # --------------------------------------------------------------------------
+# phase 12: MoE training at full width
+
+
+MOE_TRAIN = dict(num_layers=1)   # 1 of 56 layers, every expert: 2.907 B params, 5.8 GB bf16
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 8192  # the config's 2 microbatches of one 8192-token row
+MOE_GRAD_SEQ = 2048              # the f32 gradient check's one row (11.6 GB of f32 params)
+MOE_TRAIN_BUDGET_S = 120.0
+
+
+def _moe_drops(calls):
+    """(dropped, total) expert assignments over the record's MoE calls."""
+    kept = [keep for _, _, keep in calls if keep is not None]
+    return (sum(int((~k).sum()) for k in kept), sum(k.numel() for k in kept))
+
+
+def _grads(model, params, batch):
+    """(loss, gradient leaves) of ``model.loss`` at ``params``."""
+    import torch
+
+    from repro_torch.tree import leaves, unflatten
+
+    live = [t.detach().requires_grad_(True) for t in leaves(params)]
+    loss, _ = model.loss(unflatten(params, live), batch)
+    grads = torch.autograd.grad(loss, live)
+    return float(loss.detach()), grads
+
+
+def moe_train_phase(dev, seed):
+    """Phase 12: full-width mixtral-8x22b at 1 of its 56 layers with every
+    expert, under its optimized training variant (2 microbatches,
+    flash_vjp). (a) bf16, 3 steps of 2 x 8192 tokens through
+    ElasticTrainer (``train_phase``), then its dropped expert assignments
+    in an untimed forward of the first batch with the record on; (b) f32
+    gradients of one 2048-token row, kernel path (B2 with statistics, the
+    chunked backward) against the plain path, every leaf within 2e-4 of
+    its max and no routing choice differing; (c) one 8192-token
+    microbatch of (a)'s model under remat "dots" against "full", loss and
+    every leaf within 2e-4, the peak bytes of each. Returns ((a)'s
+    launches, summary)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.optimized import OPTIMIZED
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import BWD_CALLS, LAUNCHES, PLAIN_CALLS, reset_counts
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.tree import leaves_with_paths
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MIXTRAL_ARCH).replace(**MOE_TRAIN, **OPTIMIZED[MIXTRAL_ARCH]["train"])
+    launches, summary = train_phase(dev, seed, cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, {})
+    summary = {"train": summary}
+
+    # (a) the dropped assignments of the first step's forward, untimed
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    batch = SyntheticBatches(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, seed=seed).batch(0)
+    calls, restore = _routes_recorded()
+    try:
+        with torch.inference_mode():
+            for row in torch.as_tensor(batch["tokens"], device=dev).split(1):
+                model.loss(params, {"tokens": row})
+    finally:
+        restore()
+    dropped, total = _moe_drops(calls)
+    summary["dropped_assignments"] = dict(dropped=dropped, of=total,
+                                          capacity=cfg.capacity_factor)
+    log(f"moe train phase: step 0's forward drops {dropped} of {total} expert assignments "
+        f"(capacity factor {cfg.capacity_factor}, {MOE_TRAIN_SEQ} tokens a microbatch)")
+    del params, calls
+
+    # (c) remat "dots" against "full" on one microbatch of (a)
+    row = {"tokens": torch.as_tensor(batch["tokens"][:1], device=dev)}
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    remat = {}
+    for policy in ("full", "dots"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss, grads = _grads(DecoderLM(cfg.replace(remat=policy)), params, row)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        remat[policy] = (loss, grads, dict(loss=loss, ms=1e3 * (time.perf_counter() - t0),
+                                           max_memory_allocated=peak))
+    (lf, gf, full), (ld, gd, dots) = remat["full"], remat["dots"]
+    worst = _leaf_gaps([path for path, _ in leaves_with_paths(params)], gd, gf)[0][0]
+    summary["remat"] = dict(full=full, dots=dots, worst_rel=worst,
+                            bitwise=all(torch.equal(d, f) for d, f in zip(gd, gf)))
+    log(f"  remat dots vs full: {json.dumps(summary['remat'])}")
+    if not (abs(ld - lf) <= LOGIT_RTOL * abs(lf) and worst <= LOGIT_RTOL):
+        raise AssertionError(f"remat dots vs full: loss {ld} vs {lf}, worst leaf {worst}")
+    del params, remat, gf, gd, grads
+    torch.cuda.empty_cache()
+
+    # (b) f32 gradients, kernel path against plain path
+    check_released(dev, "the f32 MoE gradient check")
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    kern, plain = DecoderLM(cfg32), DecoderLM(cfg32, plain=True)
+    params = kern.init(torch.Generator(device=dev).manual_seed(seed + 3), device=dev)
+    paths = [p for p, _ in leaves_with_paths(params)]
+    toks = SyntheticBatches(cfg32, 1, MOE_GRAD_SEQ, seed=seed + 3).batch(0)["tokens"]
+    row = {"tokens": torch.as_tensor(toks, device=dev)}
+    calls, restore = _routes_recorded()
+    try:
+        reset_counts()
+        lk, gk = _grads(kern, params, row)
+        counts = (dict(LAUNCHES), dict(BWD_CALLS), sum(PLAIN_CALLS.values()))
+        rk = calls[:]
+        calls.clear()
+        lp, gp = _grads(plain, params, row)
+        rp = calls[:]
+    finally:
+        restore()
+    want, want_bwd = expected_train_counts(kern, 1)
+    want = ({n: want.get(n, 0) for n in LAUNCHES}, {n: want_bwd.get(n, 0) for n in BWD_CALLS}, 0)
+    if counts != want:
+        raise AssertionError(f"f32 MoE gradients: launches, backward and plain calls "
+                             f"{counts}, expected {want}")
+    if len(rk) != 1:
+        raise AssertionError(f"f32 MoE gradients: {len(rk)} routing records of one MoE call")
+    differ, margins = _route_gaps(rk, rp)
+    gaps = _leaf_gaps(paths, gk, gp)
+    summary["grad_check"] = dict(seq=MOE_GRAD_SEQ, loss=lk, plain_loss=lp,
+                                 worst_rel=gaps[0][0], worst_leaf=gaps[0][1],
+                                 routing_choices_differing=differ,
+                                 leaves=len(gaps), params=sum(g.numel() for g in gk))
+    log(f"  f32 gradients kernel vs plain: {json.dumps(summary['grad_check'])}; "
+        f"worst leaves {gaps[:4]}")
+    if margins:
+        log(f"  router margins where the paths differ: {sorted(margins)[:16]}")
+    if differ or not gaps[0][0] <= LOGIT_RTOL or not abs(lk - lp) <= LOGIT_RTOL * abs(lp):
+        raise AssertionError(f"f32 MoE gradients: worst leaf {gaps[0]}, loss {lk} vs {lp}, "
+                             f"{differ} routing choices differ")
+    del params, gk, gp, rk, rp, calls
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"moe train phase: {summary['phase_s']:.1f} s")
+    if summary["phase_s"] > MOE_TRAIN_BUDGET_S:
+        raise AssertionError(f"moe train phase took {summary['phase_s']:.1f} s > "
+                             f"{MOE_TRAIN_BUDGET_S} s")
+    return launches, summary
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -3142,10 +3350,18 @@ def main(argv=None):
     by_path["families"] = dict(families_launches)
     for name, n in families_launches.items():
         launches[name] += n
+    moe_launches, moe_training = moe_train_phase(dev, args.seed)
+    by_path["moe_training"] = dict(moe_launches)
+    for name, n in moe_launches.items():
+        launches[name] += n
 
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:97"),
+        "flash_attention_stats": ("src/repro_torch/csrc/flash_attention.cu",
+                                  "src/repro/kernels/flash_attention/kernel.py:97 (B2; "
+                                  "with the row statistics of "
+                                  "src/repro/models/attention.py:70 _chunked_attention)"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:91"),
         "paged_decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -3170,10 +3386,10 @@ def main(argv=None):
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            "launches_by_path": {path: n[name] for path, n in by_path.items()},
+            "launches_by_path": {path: n.get(name, 0) for path, n in by_path.items()},
             **{k: v for k, v in r.items()
                if k.startswith(("decode_", "train_", "jamba_", "event_", "device_",
-                                "plain_device", "mixtral_"))}})
+                                "plain_device", "mixtral_", "nostats_"))}})
     log(f"f32 logits check passed: worst {worst:.3e} <= {LOGIT_RTOL}; f32 gradient "
         f"check passed: rwkv6-3b worst {worst_grad:.3e} <= {LOGIT_RTOL}, full depth "
         f"{depth_ratio:.3f} <= 1 of its limit; jamba block in place "
@@ -3185,13 +3401,17 @@ def main(argv=None):
         f"{serving_torch['phase_s']:.1f} s; arrivals sampler card vs CPU and example "
         f"twins in {arrivals['phase_s']:.1f} s; model families (mixtral-8x22b served "
         f"paged and dense, f32 logits of four families, the serve launcher) in "
-        f"{families['phase_s']:.1f} s; total "
+        f"{families['phase_s']:.1f} s; MoE training (mixtral-8x22b 1 layer, f32 "
+        f"gradients {moe_training['grad_check']['worst_rel']:.3e} <= {LOGIT_RTOL}, "
+        f"remat dots vs full {moe_training['remat']['worst_rel']:.3e}) in "
+        f"{moe_training['phase_s']:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"fleet": {**fleet, "card": smi}}))
     print(json.dumps({"serving_fleet": {**serving_fleet, "card": smi}}, default=float))
     print(json.dumps({"serving_torch": {**serving_torch, "card": smi}}, default=float))
     print(json.dumps({"arrivals": {**arrivals, "card": smi}}))
     print(json.dumps({"families": {**families, "card": smi}}, default=float))
+    print(json.dumps({"moe_training": {**moe_training, "card": smi}}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -48,6 +48,14 @@
 // f32 (the parity checks and gradients): flash_kernel keeps the CUDA-core
 // design, both products f32 FMAs from shared memory, since TF32 would miss
 // f32's atol of 2e-5.
+//
+// Softmax statistics (training under cfg.flash_vjp): where p.m is set, both
+// kernels also write each row's m (its largest logit after softcap and mask,
+// natural-log domain) and l = sum exp(s - m), floored at 1e-37, as (B, H, Sq)
+// f32 in the epilogue: the residuals of the chunked recompute backward
+// (repro.models.attention._flash_jnp_bwd). A row that sees no k tile gets
+// m = NEG_INF and l = 1e-37, the reference's values for a row that has
+// seen nothing.
 #include "common.cuh"
 
 struct FlashParams {
@@ -63,6 +71,8 @@ struct FlashParams {
   int32_t causal, window, prefix_len, q_offset;
   float scale, softcap;
   int32_t dtype;
+  float* m;  // (B, H, Sq) row statistics, or null
+  float* l;
 };
 
 // ---------------------------------------------------------------------------
@@ -256,6 +266,13 @@ __global__ void __launch_bounds__(FTHREAD) flash_kernel(const FlashParams p) {
   }
   __syncthreads();
 
+  if (p.m) {
+    const int64_t base = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+    for (int r = tid; r < BQ && row0 + r < p.Sq; r += FTHREAD) {
+      p.m[base + row0 + r] = m_s[r];  // NEG_INF where no tile was seen
+      p.l[base + row0 + r] = fmaxf(l_s[r], 1e-37f);
+    }
+  }
   T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -651,6 +668,11 @@ __global__ void __launch_bounds__(WgTile<HD>::NTHR, 1)
       const int row = row0 + 64 * wg + r_in + 8 * r;
       if (row >= p.Sq) continue;
       const float l = fmaxf(l_r[r], 1e-37f);
+      if (p.m && tq == 0) {
+        const int64_t at = (static_cast<int64_t>(b) * p.H + h) * p.Sq + row;
+        p.m[at] = m_r[r] == -INFINITY ? REPRO_NEG_INF : m_r[r];  // no tile seen
+        p.l[at] = l;
+      }
 #pragma unroll
       for (int pn = 0; pn < T::NP; ++pn)
 #pragma unroll

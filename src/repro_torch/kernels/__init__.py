@@ -16,22 +16,26 @@ Each kernel ships three files, as in ``repro.kernels``:
 name, so a run can show which path it went through: each kernel wrapper
 adds one where it launches its kernel, each plain version where it runs.
 ``BWD_CALLS`` counts the backward passes that are plain PyTorch math by
-design, since the reference has no kernel for them either (attention's
-backward recomputes through its oracle).
+design, since the reference has no kernel for them either: attention's
+backward recomputes through its oracle (``flash_attention_bwd``), or, under
+``cfg.flash_vjp``, chunk by chunk from the forward's softmax statistics
+(``flash_attention_bwd_chunked``). ``flash_attention_stats`` is B2 launched
+with those statistics as extra outputs (its plain version the chunked
+online softmax).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-KERNEL_NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
+KERNEL_NAMES = ("flash_attention", "flash_attention_stats", "decode_attention", "paged_decode_attention",
                 "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan", "ssm_scan_bwd",
                 "serving_fleet")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 # plus the model-level plain attention (``models.attention.plain=True``)
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNEL_NAMES + ("model_attention",)}
-BWD_CALLS: Dict[str, int] = {"flash_attention_bwd": 0}
+BWD_CALLS: Dict[str, int] = {"flash_attention_bwd": 0, "flash_attention_bwd_chunked": 0}
 
 
 def reset_counts() -> None:

@@ -9,6 +9,10 @@ which the model reshapes back for free. The bf16 kernel loads its tiles with
 TMA through tensor maps built from those strides: a view must then start on
 16 bytes and step by whole 16 bytes in every dimension but the last (TMA's
 rules), or the wrapper raises.
+
+With ``stats=True`` the kernel also writes each row's softmax statistics
+(m, l) as (B, H, Sq) f32, the residuals of the chunked recompute backward
+under ``cfg.flash_vjp``; such a launch counts as ``flash_attention_stats``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ class FlashParams(ctypes.Structure):
         ("q_offset", _I32),
         ("scale", ctypes.c_float), ("softcap", ctypes.c_float),
         ("dtype", _I32),
+        ("m", ctypes.c_void_p), ("l", ctypes.c_void_p),
     ]
 
 
@@ -73,9 +78,11 @@ def _tma_strides(t, name):
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        prefix_len=0, q_offset=0):
+                        prefix_len=0, q_offset=0, stats=False):
     """q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd) CUDA tensors of one dtype (f32 or
-    bf16), any strides with a unit last stride. Returns (B,H,Sq,hd)."""
+    bf16), any strides with a unit last stride. Returns (B,H,Sq,hd), or
+    with ``stats`` (out, m, l): each row's largest logit after softcap and
+    mask, and sum exp(s - m) floored at 1e-37, (B,H,Sq) f32."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -98,15 +105,23 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
             _build.check_rows(t, name)
         strides = [t.stride()[:3] for t in (q, k, v)]
     _build.check_rows(out, "out")
+    m = l = None
+    if stats:
+        m, l = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+                for _ in range(2))
     prm = FlashParams(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *strides[0], *strides[1], *strides[2], *out.stride()[:3],
         B, H, KV, Sq, Sk, hd,
         int(bool(causal)), int(window or 0), int(prefix_len or 0),
         int(q_offset), hd**-0.5, float(softcap or 0.0),
-        _build.dtype_code(q))
+        _build.dtype_code(q), m.data_ptr() if stats else None,
+        l.data_ptr() if stats else None)
     lib, fn = _entry()
     _build.check(lib, fn(ctypes.byref(prm), _build.stream_ptr(q.device)),
                  "flash_attention_fwd")
+    if stats:
+        LAUNCHES["flash_attention_stats"] += 1
+        return out, m, l
     LAUNCHES["flash_attention"] += 1
     return out

@@ -22,11 +22,16 @@ def make_train_step(model: DecoderLM, opt: AdamW,
                     num_microbatches: Optional[int] = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    The global batch (``batch["tokens"]``, (B, S), numpy or tensor) splits
-    into M microbatches of B/M rows; their gradients accumulate in
-    ``cfg.grad_acc_dtype`` and are divided by M, and the metrics are
-    averaged. Params and optimizer state are updated in place (see
-    ``AdamW.update``); the returned state holds the same tensors.
+    Every leaf of the global batch (numpy or tensor: ``tokens``, or the
+    audio family's ``embeds`` and ``labels``, or the vlm family's
+    ``prefix_embeds`` and ``tokens``) splits on its first axis into M
+    microbatches of B/M rows, as the reference's ``jax.tree.map`` does, and
+    each microbatch's dict goes whole to ``model.loss``; their gradients
+    accumulate in ``cfg.grad_acc_dtype`` (the f32 router of an MoE layer
+    too, beside bf16 leaves) and are divided by M, and the metrics
+    (``loss``, ``ce`` and the MoE ``aux``) are averaged. Params and
+    optimizer state are updated in place (see ``AdamW.update``); the
+    returned state holds the same tensors.
 
     Memory: each leaf's gradient is added to its accumulation buffer by a
     hook as soon as autograd has produced it, and then dropped, so a
@@ -36,21 +41,19 @@ def make_train_step(model: DecoderLM, opt: AdamW,
     then ``.astype(f32) / M``. With M = 1 the buffer is the gradient
     itself, in the param dtype."""
     cfg = model.cfg
-    if any(spec.is_moe for spec in model.specs):
-        raise NotImplementedError(
-            f"{cfg.name}: training a config with MoE layers is not ported yet "
-            f"(the port serves MoE; MoE training is the next training slice, "
-            f"ROADMAP Queue A)")
     M = num_microbatches or cfg.num_microbatches
     acc_dt = torch_dtype(cfg.grad_acc_dtype)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state["params"]
         flat = leaves(params)
-        tokens = torch.as_tensor(batch["tokens"]).to(flat[0].device)
-        if tokens.shape[0] % M:
-            raise ValueError(f"global batch {tokens.shape[0]} does not split into "
-                             f"{M} microbatches")
+        mbs = {}
+        for name, leaf in batch.items():
+            leaf = torch.as_tensor(leaf).to(flat[0].device)
+            if leaf.shape[0] % M:
+                raise ValueError(f"batch[{name!r}]: {leaf.shape[0]} rows do not split "
+                                 f"into {M} microbatches")
+            mbs[name] = leaf.reshape((M, leaf.shape[0] // M) + leaf.shape[1:])
         live = [p.detach().requires_grad_(True) for p in flat]
         tree = unflatten(params, live)
         if M == 1:
@@ -71,8 +74,8 @@ def make_train_step(model: DecoderLM, opt: AdamW,
                    for i, t in enumerate(live)]
         sums = None
         try:
-            for mb in tokens.reshape((M, tokens.shape[0] // M) + tokens.shape[1:]):
-                loss, metrics = model.loss(tree, {"tokens": mb})
+            for i in range(M):
+                loss, metrics = model.loss(tree, {name: t[i] for name, t in mbs.items()})
                 loss.backward()
                 metrics = {k: v.detach() for k, v in metrics.items()}
                 sums = metrics if sums is None else {k: sums[k] + v

@@ -7,12 +7,12 @@ checkpoints and handles simulated revocations.
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b --smoke \
       --steps 3 --device cpu                          # plain PyTorch path
 
-Training is ported for attention, RWKV-6 and Mamba/attention stacks
-(starcoder2-3b, rwkv6-3b). A config with MoE layers (mixtral-8x22b,
-llama4-scout-17b-a16e, jamba-1.5-large-398b) raises naming MoE: the port
-serves experts but does not train them yet (``chip_smoke.py`` trains one
-jamba block with experts off). Weights are the port's own seeded init
-(``--seed``). ``--preempt 8:1``
+Every registry id trains: attention, RWKV-6 and Mamba/attention stacks,
+MoE layers (mixtral-8x22b, llama4-scout-17b-a16e, jamba-1.5-large-398b
+with its experts), the audio family over frame embeddings
+(musicgen-medium) and the vlm family with its image prefix
+(paligemma-3b); e.g. ``--arch mixtral-8x22b --smoke --device cpu``.
+Weights are the port's own seeded init (``--seed``). ``--preempt 8:1``
 revokes the card at step 8 and resumes on a replacement (one device only:
 meshes are ROADMAP Queue A item 11).
 """

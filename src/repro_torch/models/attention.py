@@ -34,7 +34,7 @@ import torch
 from repro_torch.kernels import PLAIN_CALLS
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       paged_decode_attention)
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_vjp
 from repro_torch.models.common import (NEG_INF, allow_mask, apply_rope,
                                        dense_init, mask_bias)
 from repro_torch.models.config import LayerSpec, ModelConfig
@@ -99,7 +99,10 @@ def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
     (differentiated by autograd in training); otherwise the kernel ops,
     which pick the CUDA kernel or its plain version by device. ``train``
     takes the flash op at every S, since its backward is the one the
-    training path has."""
+    training path has; with ``cfg.flash_vjp`` it takes the op whose forward
+    also returns the softmax statistics and whose backward recomputes
+    chunk by chunk (``attn_chunk_q`` x ``attn_chunk_k``), the reference's
+    ``_flash_jnp``."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -119,9 +122,14 @@ def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
     if q_pos.dim() != 1 or Sq != k.shape[1]:
         raise ValueError("prefill and training attention take self-attention "
                          "over positions 0..S-1")
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        causal=True, window=window, softcap=cfg.attn_softcap,
-                        prefix_len=cfg.prefix_len)
+    kw = dict(causal=True, window=window, softcap=cfg.attn_softcap,
+              prefix_len=cfg.prefix_len)
+    if train and cfg.flash_vjp:
+        kw.update(chunk_q=min(cfg.attn_chunk_q, Sq), chunk_k=min(cfg.attn_chunk_k, Sq))
+        op = flash_attention_vjp
+    else:
+        op = flash_attention
+    o = op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
     return o.transpose(1, 2).reshape(B, Sq, H, hd)
 
 

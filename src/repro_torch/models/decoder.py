@@ -30,9 +30,11 @@ as in the reference, which never applies ``sinusoidal_pos``.
 
 Four modes share one layer body: ``train`` (``forward``/``loss``: the full
 sequence, no caches, each block under ``torch.utils.checkpoint`` when
-``cfg.remat == "full"``; attention layers through the differentiable flash
-op, Mamba layers through the differentiable selective scan; the MoE
-layers' load-balancing losses summed into ``aux``),
+``cfg.remat`` is ``"full"`` (keep only the block's input) or ``"dots"``
+(keep every matmul's output, recompute the rest); attention layers
+through the differentiable flash op, Mamba layers through the
+differentiable selective scan; the MoE layers' load-balancing losses
+summed into ``aux``),
 ``prefill`` (returns per-layer caches), ``decode`` (dense cache, one token
 per row, per-row positions) and ``decode_paged`` (paged pools + page
 table). An RWKV layer's cache is its state ``{"shift_tm", "shift_cm",
@@ -47,12 +49,14 @@ reference does. An MoE layer routes all the tokens of a call as one group
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as Fn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as A
@@ -63,6 +67,18 @@ from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        init_norm, softcap)
 from repro_torch.models.config import ModelConfig, block_structure
 from repro_torch.tree import leaves
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: the torch form of ``jax.checkpoint_policies.
+    checkpoint_dots``: every matrix product's output is kept for the
+    backward, everything else (elementwise ops, norms, the CUDA kernels
+    launched through ctypes, which no dispatch mode sees) is recomputed."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class DecoderLM:
@@ -244,12 +260,12 @@ class DecoderLM:
         Returns (x, aux): aux sums the MoE layers' losses in f32, block by
         block as the reference's scan carry does."""
         remat = self.cfg.remat
-        if remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save matmul outputs, recompute the rest) is not "
-                "ported; use 'full' or 'none' (ROADMAP Queue A, training)")
-        if remat not in ("full", "none"):
+        if remat not in ("full", "dots", "none"):
             raise ValueError(f"remat={remat!r}")
+        kw = dict(use_reentrant=False)
+        if remat == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_dots)
         bs = self.block_size
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.n_blocks):
@@ -264,8 +280,7 @@ class DecoderLM:
                         aux_b = aux_b + a
                 return x, aux_b
 
-            x, aux_b = (checkpoint(block, x, use_reentrant=False) if remat == "full"
-                        else block(x))
+            x, aux_b = block(x) if remat == "none" else checkpoint(block, x, **kw)
             aux = aux + aux_b
         return x, aux
 

@@ -41,7 +41,16 @@ RECORD = None
 appends ``(idx, probs, keep)``: its routing choices (G, T, k), its
 probabilities (G, T, E) and, under capacity dispatch, which assignments
 were kept (G, T*k; None for ``_moe_dense``). The tensors stay on the
-device, so recording adds no host sync."""
+device, so recording adds no host sync. A block's forward rerun by
+activation checkpointing in the backward records nothing, so one training
+forward records each MoE call once whatever ``cfg.remat``."""
+
+
+def _record(entry):
+    # the autograd engine runs a graph task only in the backward, where
+    # torch.utils.checkpoint recomputes a block
+    if RECORD is not None and torch._C._current_graph_task_id() == -1:
+        RECORD.append(entry)
 
 
 def _gated(cfg: ModelConfig) -> bool:
@@ -137,7 +146,13 @@ def _dispatch(x2, idx, E: int, C: int):
     idx (G, T, k). An expert's assignments are ranked in token-major order
     (token 0's first choice, then its second, ...); those past ``C`` are
     kept out (``keep`` False) and add a zero into slot C-1, as the
-    reference's scatter-add does. Returns ((G, E, C, d), bookkeeping)."""
+    reference's scatter-add does. Returns ((G, E, C, d), bookkeeping).
+
+    On CUDA this ``index_add_`` and the backward of the ``x2[:, tok_ids]``
+    gather add atomically, yet the results do not depend on their order:
+    a buffer row gets one kept token plus zeros, and a token's gradient
+    row at most k <= 2 values, each added into zeros (bitwise repeatable
+    on the card: tests/test_torch_gpu.py)."""
     G, T, d = x2.shape
     k = idx.shape[-1]
     e_flat = idx.reshape(G, T * k)
@@ -193,8 +208,7 @@ def _moe_dense(p, x, cfg: ModelConfig):
     gate_mat = torch.zeros((G * T, E), dtype=torch.float32, device=x.device)
     gate_mat.scatter_(1, idx.reshape(G * T, -1), gates.reshape(G * T, -1))
     y = torch.einsum("etd,te->td", outs.float(), gate_mat)
-    if RECORD is not None:
-        RECORD.append((idx, probs, None))
+    _record((idx, probs, None))
     return y.reshape(G, T, d).to(x.dtype), _aux_loss(probs, idx, E)
 
 
@@ -204,8 +218,7 @@ def _moe_local(p, x, cfg: ModelConfig):
     gates, idx, probs = _route(x, p["router"], k)
     C = _capacity(T, k, E, cfg.capacity_factor)
     disp, book = _dispatch(x, idx, E, C)
-    if RECORD is not None:
-        RECORD.append((idx, probs, book[1]))
+    _record((idx, probs, book[1]))
     out = _expert_ffn(disp, p["w_gate"], p["w_up"], p["w_out"], cfg)
     return _combine(out, book, gates), _aux_loss(probs, idx, E)
 

@@ -1,7 +1,7 @@
 """Elastic, fault-tolerant training executor on one card (twin of
-``repro.runtime.elastic.ElasticTrainer``). It trains attention, RWKV-6 and
-Mamba/attention stacks; a config with MoE layers is served but not yet
-trained (``launch.steps.make_train_step`` refuses it, naming MoE).
+``repro.runtime.elastic.ElasticTrainer``). It trains every model family
+of the registry: attention, RWKV-6 and Mamba/attention stacks, MoE layers,
+and the audio and vlm batch layouts (``launch.steps.make_train_step``).
 
 A revocation notice (``preempt_at``) runs the reference's discipline:
     finish the current step -> blocking checkpoint -> release the state ->

@@ -1270,3 +1270,145 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ---- MoE training and the training extras: B2 with its softmax statistics,
+# the chunked recompute backward (``cfg.flash_vjp``), remat="dots"
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,kw", [
+    (300, dict()), (300, dict(window=48)), (300, dict(softcap=30.0)),
+    (300, dict(prefix_len=24)), (1000, dict(window=256, softcap=30.0)),
+], ids=["causal", "window", "softcap", "prefix", "window_softcap"])
+def test_flash_stats_kernel_matches_plain_chunked(cuda, dtype, S, kw):
+    """B2 with ``stats=True`` against the plain chunked online softmax on
+    the same inputs: out at the attention tolerance, m and l at 2e-5 (f32)
+    or 2e-2 (bf16), of (1 + |value|); the output equals the launch
+    without statistics bit for bit."""
+    from repro_torch.kernels.flash_attention.ref import chunked_attention_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    B, H, KV, hd = 2, 8, 2, 128
+    q = _randn(gen, (B, S, H, hd), dtype, cuda).transpose(1, 2)
+    k, v = (_randn(gen, (B, S, KV, hd), dtype, cuda).transpose(1, 2) for _ in range(2))
+    reset_counts()
+    o, m, l = flash_attention_fwd(q, k, v, **kw, stats=True)
+    assert LAUNCHES["flash_attention_stats"] == 1 and LAUNCHES["flash_attention"] == 0
+    assert m.dtype == l.dtype == torch.float32 and m.shape == l.shape == (B, H, S)
+    ro, rm, rl = chunked_attention_ref(q, k, v, chunk_q=128, chunk_k=256, **kw)
+    tol = _tol(dtype)
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(m, rm, atol=tol, rtol=tol)
+    torch.testing.assert_close(l, rl, atol=tol, rtol=tol)
+    assert torch.equal(o, flash_attention_fwd(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kw", [dict(), dict(window=48, softcap=30.0), dict(prefix_len=24)],
+                         ids=["causal", "window_softcap", "prefix"])
+def test_chunked_backward_on_the_card_matches_full_backward(cuda, dtype, kw):
+    """``flash_attention_vjp`` on the card (B2 with statistics, then the
+    chunked backward, ragged chunks) against the O(S^2) recompute backward
+    of the flash op on the same inputs (1e-4 f32, 2e-2 bf16)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_vjp
+
+    gen = torch.Generator(device=cuda).manual_seed(48)
+    B, H, KV, S, hd = 1, 16, 2, 300, 128
+    q, do = (_randn(gen, (B, H, S, hd), dtype, cuda) for _ in range(2))
+    k, v = (_randn(gen, (B, KV, S, hd), dtype, cuda) for _ in range(2))
+    grads = []
+    for op, extra in ((flash_attention_vjp, dict(chunk_q=64, chunk_k=128)),
+                      (flash_attention, {})):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        reset_counts()
+        grads.append(torch.autograd.grad(op(*leaves, **kw, **extra), leaves, do))
+        if op is flash_attention_vjp:
+            assert LAUNCHES["flash_attention_stats"] == 1 and sum(PLAIN_CALLS.values()) == 0
+            assert BWD_CALLS["flash_attention_bwd_chunked"] == 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+def _moe_train_losses(cfg, dev, steps=2):
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant_schedule
+
+    model = build_model(cfg)
+    opt = AdamW(lr=constant_schedule(1e-3))
+    params = _to(model.init(torch.Generator().manual_seed(49), device="cpu"), dev)
+    state, step = opt.init_state(params), make_train_step(model, opt)
+    data = SyntheticBatches(cfg, 4, 96, seed=0)
+    losses = []
+    for i in range(steps):
+        state, metrics = step(state, data.batch(i))
+        losses.append([float(metrics[k]) for k in ("loss", "ce", "aux")])
+    return np.array(losses), state
+
+
+def test_mixtral_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """mixtral's smoke config in f32 under its optimized training variant
+    (two microbatches, flash_vjp, small attention chunks): two train steps
+    on the card (B2 with statistics, the chunked backward) against the same
+    on the CPU, loss, ce and aux within 5e-4."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.optimized import OPTIMIZED
+
+    cfg = smoke_config("mixtral-8x22b").replace(
+        **OPTIMIZED["mixtral-8x22b"]["train"], remat="full", attn_chunk_q=32, attn_chunk_k=64)
+    cpu, _ = _moe_train_losses(cfg, torch.device("cpu"))
+    reset_counts()
+    card, _ = _moe_train_losses(cfg, cuda)
+    n = 2 * 2 * cfg.num_layers  # steps x microbatches x attention layers
+    assert LAUNCHES["flash_attention_stats"] == 2 * n and LAUNCHES["flash_attention"] == 0
+    assert BWD_CALLS["flash_attention_bwd_chunked"] == n and sum(PLAIN_CALLS.values()) == 0
+    np.testing.assert_allclose(card, cpu, atol=5e-4, rtol=5e-4)
+
+
+def test_remat_dots_equals_full_on_the_card(cuda):
+    """remat="dots" against "full" on the card, mixtral's smoke config in
+    f32 through the kernels: loss and every gradient leaf within 2e-4 of
+    its max (the saved matmul outputs are the recomputed ones)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, unflatten
+
+    cfg = smoke_config("mixtral-8x22b").replace(flash_vjp=True)
+    params = _to(build_model(cfg).init(torch.Generator().manual_seed(50), device="cpu"), cuda)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(1, cfg.vocab_size, (2, 96)),
+                           device=cuda)
+    out = {}
+    for remat in ("dots", "full"):
+        live = [t.detach().requires_grad_(True) for t in leaves(params)]
+        loss, _ = build_model(cfg.replace(remat=remat)).loss(unflatten(params, live),
+                                                             {"tokens": toks})
+        out[remat] = (float(loss), torch.autograd.grad(loss, live))
+    assert abs(out["dots"][0] - out["full"][0]) <= 2e-4 * abs(out["full"][0])
+    for a, b in zip(out["dots"][1], out["full"][1]):
+        assert (a - b).abs().max() <= 2e-4 * b.abs().max()
+
+
+def test_moe_backward_on_the_card_is_bitwise_repeatable(cuda):
+    """The MoE layer's backward on the card, twice from the same inputs,
+    bit for bit: the dispatch's ``index_add_`` and the backward of its
+    token gather add atomically, but each row receives at most
+    ``experts_per_token`` (<= 2) values into zeros, and two float additions
+    into zero give one result in either order."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import mlp
+
+    cfg = smoke_config("mixtral-8x22b")
+    assert cfg.experts_per_token <= 2
+    p = mlp.init_moe(torch.Generator(device=cuda).manual_seed(51), cfg, torch.float32, cuda)
+    x = _randn(torch.Generator(device=cuda).manual_seed(52), (2, 300, cfg.d_model),
+               torch.float32, cuda)
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_(True)] + [
+            t.clone().requires_grad_(True) for t in p.values()]
+        y, aux = mlp.apply_moe(dict(zip(p, leaves[1:])), leaves[0], cfg)
+        runs.append(torch.autograd.grad((y.square().sum() + aux), leaves))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

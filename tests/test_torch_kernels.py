@@ -548,6 +548,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.configs.registry", "repro_torch.models.mlp",
             "repro_torch.models.decoder", "repro_torch.models.common",
             "repro_torch.convert"} <= names
+    # the training variants' table (MoE training and the training extras)
+    assert "repro_torch.configs.optimized" in names
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

@@ -41,6 +41,7 @@ from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import mamba as M  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
+from repro_torch.optim.schedule import constant_schedule  # noqa: E402
 from repro_torch.runtime.batching import ContinuousBatcher, GenRequest  # noqa: E402
 
 ARCH = "jamba-1.5-large-398b"
@@ -203,8 +204,8 @@ def test_mamba_prefill_and_decode_match_reference(S):
 def test_mamba_train_raises():
     """``mamba_train`` (from a zero state, no cache) matches the reference's
     within 5e-4; the jamba config with its experts scores a batch (its
-    ``loss`` adds the experts' aux loss) but still raises in training,
-    naming MoE (tests/test_torch_mamba_train.py holds the gradients)."""
+    ``loss`` adds the experts' aux loss) and takes a train step
+    (tests/test_torch_moe_train.py holds the gradients)."""
     jcfg, jp, tp = _block_params(5)
     cfg = smoke_config(ARCH).replace(**NO_MOE)
     x = np.random.default_rng(6).normal(size=(2, 37, cfg.d_model)).astype(np.float32)
@@ -216,8 +217,11 @@ def test_mamba_train_raises():
     params = moe.init(torch.Generator().manual_seed(0), device="cpu")
     _, parts = moe.loss(params, {"tokens": torch.ones((1, 8), dtype=torch.int64)})
     assert torch.isfinite(parts["loss"]) and float(parts["aux"]) > 0
-    with pytest.raises(NotImplementedError, match="MoE"):
-        make_train_step(moe, AdamW(lr=1e-3))
+    opt = AdamW(lr=constant_schedule(1e-3))
+    state, metrics = make_train_step(moe, opt)(
+        opt.init_state(params), {"tokens": torch.ones((2, 8), dtype=torch.int64)})
+    assert state["step"] == 1
+    assert all(np.isfinite(float(v)) for v in metrics.values()) and float(metrics["aux"]) > 0
 
 
 # ---------------------------------------------------------------- DecoderLM

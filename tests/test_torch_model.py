@@ -277,14 +277,16 @@ def test_decoder_bucketed_prefill_and_paged_decode_match_reference(arch):
 
 
 def test_decoder_refuses_unported_mixers_and_default_device(tmp_path):
-    """jamba's smoke config with its experts builds, and the serving
-    launcher serves it. What the port still refuses: ``remat="dots"``, more
-    than one device, and training a config with experts (the trainer
-    refuses it, naming MoE, until the training slice). Entry points
-    default to cuda and raise without a card."""
+    """jamba's smoke config with its experts builds, the serving launcher
+    serves it, and it trains: ``make_train_step`` takes a step with its
+    experts, and the training launcher trains mixtral's smoke config.
+    ``remat="dots"`` runs the forward the other policies run. What the port
+    still refuses: more than one device. Entry points default to cuda and
+    raise without a card."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import main as train_main
     from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import constant_schedule
     from repro_torch.runtime.elastic import _one_device
 
     jamba = build_model(smoke_config("jamba-1.5-large-398b"))
@@ -292,18 +294,25 @@ def test_decoder_refuses_unported_mixers_and_default_device(tmp_path):
         torch.Generator(), device="meta")["layers"]) == jamba.cfg.num_layers // 2
     serve_main(["--arch", "jamba-1.5-large-398b", "--smoke", "--device", "cpu",
                 "--batch", "2", "--prompt", "5", "--gen", "2"])
-    with pytest.raises(NotImplementedError, match="dots"):
-        build_model(smoke_config("starcoder2-3b").replace(remat="dots")).forward(
-            build_model(smoke_config("starcoder2-3b")).init(
-                torch.Generator().manual_seed(0), device="cpu"),
-            torch.ones((1, 4), dtype=torch.int64))
+    sc_params = build_model(smoke_config("starcoder2-3b")).init(
+        torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.ones((1, 4), dtype=torch.int64)
+    dots, _ = build_model(smoke_config("starcoder2-3b").replace(remat="dots")).forward(
+        sc_params, toks)
+    full, _ = build_model(smoke_config("starcoder2-3b").replace(remat="full")).forward(
+        sc_params, toks)
+    assert torch.equal(dots, full)
     with pytest.raises(NotImplementedError, match="devices"):
         _one_device(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="MoE"):
-        make_train_step(jamba, AdamW(lr=1e-3))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        train_main(["--arch", "mixtral-8x22b", "--smoke", "--steps", "1",
-                    "--device", "cpu", "--ckpt-dir", str(tmp_path / "ck")])
+    opt = AdamW(lr=constant_schedule(1e-3))
+    jparams = jamba.init(torch.Generator().manual_seed(0), device="cpu")
+    state, metrics = make_train_step(jamba, opt)(
+        opt.init_state(jparams), {"tokens": np.ones((2, 8), np.int64)})
+    assert state["step"] == 1 and np.isfinite(float(metrics["loss"]))
+    assert float(metrics["aux"]) > 0
+    train_main(["--arch", "mixtral-8x22b", "--smoke", "--steps", "1",
+                "--device", "cpu", "--ckpt-dir", str(tmp_path / "ck")])
+    assert (tmp_path / "ck" / "step_00000000").is_dir()
     m = build_model(smoke_config("starcoder2-3b"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

@@ -227,8 +227,9 @@ def test_train_mode_refuses_attention_and_dots_remat():
     starcoder2-3b smoke config (sliding-window attention, rotary positions,
     biases) against ``jax.grad`` of the reference's, on the reference's jnp
     route, within 5e-4 and 1e-4 of each leaf's max; the port's attention
-    runs the flash op and its recomputing backward. remat="dots" is still
-    refused."""
+    runs the flash op and its recomputing backward. remat="dots" (keep the
+    matmuls' outputs, recompute the rest) gives the same loss and
+    gradients bit for bit."""
     jcfg = j_smoke("starcoder2-3b")
     jm = j_build(jcfg)
     jp = jm.init(jax.random.PRNGKey(2))
@@ -248,10 +249,13 @@ def test_train_mode_refuses_attention_and_dots_remat():
         ref = _ref_leaf(jg, path, m.block_size)
         assert g.shape == ref.shape, path
         assert np.abs(g.float().numpy() - ref).max() <= 1e-4 * np.abs(ref).max(), path
-    m = build_model(smoke_config(ARCH).replace(remat="dots"))
-    params = m.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.loss(params, {"tokens": torch.ones((1, 8), dtype=torch.int64)})
+    reset_counts()
+    loss_d, _, grads_d = _flat_grads(build_model(cfg.replace(remat="dots")), params,
+                                     torch.from_numpy(tokens))
+    assert BWD_CALLS["flash_attention_bwd"] == cfg.num_layers
+    assert PLAIN_CALLS["flash_attention"] == 2 * cfg.num_layers  # forward, recompute
+    assert loss_d == loss
+    assert all(torch.equal(a, b) for a, b in zip(grads_d, grads))
 
 
 # -------------------------------------------------------------- train step
