@@ -218,6 +218,27 @@ checkout of the repository. Phases (none catches its own failure):
    routing choice differing. A ``moe_training`` JSON line goes before the
    kernel table, and (a)'s launches join its counts as the
    ``moe_training`` path. The phase must end within 120 s.
+13. mesh — the port on a DeviceMesh: a one-rank NCCL process group (a
+   ``FileStore`` in a temporary directory) and ``make_smoke_mesh((1, 1))``
+   on the card; NCCL refuses two ranks on one device, so the checks that
+   need more ranks run on the CPU under gloo (tests/test_torch_mesh.py).
+   (a) deepseek-coder-33b at full width, 2 of its 62 layers (``MESH_TRAIN``:
+   1.52 B parameters), bf16, 3 steps of 2 x 4096 tokens through the mesh
+   ``ElasticTrainer`` (state and batches DTensors laid out by the layout
+   rules, the kernels called on local shards), under its config's
+   ``cp_fsdp`` (2 microbatches of one row) and under the
+   ``configs/optimized.py`` train variant (``fsdp``, 1 microbatch,
+   flash_vjp), each against the same steps through the meshless trainer on
+   the same seed and batches: losses within 1e-4 (bitwise or not is
+   logged), every kernel's launches and backward calls equal, no plain
+   call; step ms and peak bytes of each. (b) mixtral-8x22b, 1 of 56 layers
+   with every expert, bf16: one ``decode_step`` of 8 rows against a
+   4096-slot cache under ``decode_ws`` rules (B3, and the MoE layer's twin
+   of ``_moe_smap`` in its ETP branch at tp 1) against the meshless step:
+   logits within 3e-5 (the reference's ``decode_ws`` tolerance), B3's
+   launches equal. A ``mesh`` JSON line goes before the kernel table, and
+   the mesh runs' launches join its counts as the ``mesh`` path. The phase
+   must end within 90 s.
 
 ``--jamba-grad-study SEED [SEED ...]`` builds the kernels and runs only
 ``jamba_grad_phase`` for each seed, printing how far each mixer leaf lies
@@ -240,8 +261,8 @@ left allocated before each model phase, so the 80 GB card holds one
 phase's peak at a time. The last lines are the fleet summary (JSON), the
 serving fleet's summary (JSON), the serving_torch summary (JSON), the
 arrivals summary (JSON), the families summary (JSON), the MoE training
-summary (JSON), the kernel table (JSON), the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+summary (JSON), the mesh summary (JSON), the kernel table (JSON), the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1493,35 +1514,27 @@ def expected_train_counts(model, n_microbatch_steps):
     return launches, bwd_calls
 
 
-def train_phase(dev, seed, cfg, batch_rows, seq, preempt_at):
-    """``cfg`` at full width in bf16, global batch ``batch_rows`` x ``seq``
-    in the config's microbatches, remat as configured, TRAIN_STEPS steps at
-    a constant learning rate, the revocations ``preempt_at``; the counts
-    zeroed just before the run and read just after. The run writes at most
-    one checkpoint, the first revocation's: the trainer's closing
-    checkpoint, and any after the first, are logged and not written."""
-    import numpy as np
+def _trainer_classes():
+    """(FewCheckpointer, TimedTrainer), the checkpointer and trainer of the
+    training phases (defined here, after ``main`` has put ``src`` on the
+    path)."""
     import torch
 
     from repro_torch.checkpoint import Checkpointer
-    from repro_torch.data import SyntheticBatches
-    from repro_torch.kernels import (BWD_CALLS, KERNEL_NAMES, LAUNCHES, PLAIN_CALLS,
-                                     reset_counts)
-    from repro_torch.models.decoder import DecoderLM
-    from repro_torch.optim import AdamW
-    from repro_torch.optim.schedule import constant_schedule
     from repro_torch.runtime.elastic import ElasticTrainer
-
-    n_writes = min(1, len(preempt_at))
 
     class FewCheckpointer(Checkpointer):
         """Writes the first ``n_writes`` checkpoints and no later one: a
         full-width state is 31 GB (rwkv6-3b) or 36 GB (one jamba block),
         and a run keeps its disk writes to one state."""
 
+        def __init__(self, *a, n_writes=1, **kw):
+            self.n_writes = n_writes
+            super().__init__(*a, **kw)
+
         def save(self, step, state, *, blocking=False):
-            if len(self.all_steps()) >= n_writes:
-                log(f"  checkpoint at step {step} not written (at most {n_writes} "
+            if len(self.all_steps()) >= self.n_writes:
+                log(f"  checkpoint at step {step} not written (at most {self.n_writes} "
                     f"per smoke run)")
                 return
             t0 = time.perf_counter()
@@ -1559,6 +1572,27 @@ def train_phase(dev, seed, cfg, batch_rows, seq, preempt_at):
             self.rescale_ms.append(1e3 * (time.perf_counter() - t0))
             return state
 
+    return FewCheckpointer, TimedTrainer
+
+
+def train_phase(dev, seed, cfg, batch_rows, seq, preempt_at):
+    """``cfg`` at full width in bf16, global batch ``batch_rows`` x ``seq``
+    in the config's microbatches, remat as configured, TRAIN_STEPS steps at
+    a constant learning rate, the revocations ``preempt_at``; the counts
+    zeroed just before the run and read just after. The run writes at most
+    one checkpoint, the first revocation's: the trainer's closing
+    checkpoint, and any after the first, are logged and not written."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import (BWD_CALLS, KERNEL_NAMES, LAUNCHES, PLAIN_CALLS,
+                                     reset_counts)
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant_schedule
+
+    FewCheckpointer, TimedTrainer = _trainer_classes()
     check_released(dev, f"training {cfg.name}")
     M = cfg.num_microbatches
     log(f"train phase: {cfg.name} full width {cfg.dtype}, {cfg.num_layers} layers "
@@ -1575,7 +1609,9 @@ def train_phase(dev, seed, cfg, batch_rows, seq, preempt_at):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
         free = shutil.disk_usage(ckdir).free
         log(f"  checkpoints to a temporary directory, {free / 1e9:.1f} GB free")
-        trainer = TimedTrainer(model, opt, data, FewCheckpointer(ckdir, keep=1),
+        trainer = TimedTrainer(model, opt, data,
+                               FewCheckpointer(ckdir, keep=1,
+                                               n_writes=min(1, len(preempt_at))),
                                devices=[dev], log=lambda m: log(f"  {m}"))
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
@@ -3258,6 +3294,196 @@ def moe_train_phase(dev, seed):
 
 
 # --------------------------------------------------------------------------
+# phase 13: the port on a DeviceMesh (one NCCL rank), against the meshless path
+
+MESH_BUDGET_S = 90.0
+DEEPSEEK_ARCH = "deepseek-coder-33b"
+MESH_TRAIN = dict(num_layers=2)  # 2 of 62 layers: 1.52 B params, ~18 GB with f32 moments
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 4096
+MESH_DECODE = dict(num_layers=1)  # mixtral-8x22b, 1 of 56 layers, every expert
+MESH_DECODE_B, MESH_DECODE_L, MESH_DECODE_POS = 8, 4096, 4000
+
+
+def _mesh_train_run(dev, seed, cfg, mesh):
+    """TRAIN_STEPS steps of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ through
+    ``ElasticTrainer``: on one card (``mesh`` None, no process group) or
+    on the mesh's ranks. No checkpoint is written. Returns (losses, step
+    ms, peak bytes, launches, backward calls, plain calls)."""
+    import torch
+
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.kernels import BWD_CALLS, LAUNCHES, PLAIN_CALLS, reset_counts
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant_schedule
+
+    FewCheckpointer, TimedTrainer = _trainer_classes()
+    check_released(dev, f"mesh training {cfg.layout}")
+    model = DecoderLM(cfg)
+    opt = AdamW(lr=constant_schedule(1e-4), moments_dtype=cfg.opt_moments_dtype)
+    data = SyntheticBatches(cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, seed=seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as ckdir:
+        trainer = TimedTrainer(model, opt, data, FewCheckpointer(ckdir, n_writes=0),
+                               devices=[dev] if mesh is None else [0])
+        if (trainer.mesh is None) != (mesh is None):
+            raise AssertionError(f"trainer mesh {trainer.mesh}, expected {mesh}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        state = trainer.run(TRAIN_STEPS, seed=seed, checkpoint_every=0)
+        torch.cuda.synchronize()
+        out = ([h[1] for h in trainer.history], list(trainer.step_ms),
+               torch.cuda.max_memory_allocated(dev), dict(LAUNCHES), dict(BWD_CALLS),
+               dict(PLAIN_CALLS))
+    del state, trainer, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_decode(dev, seed, cfg, mesh):
+    """One ``decode_step`` of MESH_DECODE_B rows at position MESH_DECODE_POS
+    against a MESH_DECODE_L-slot dense cache holding seeded keys and values
+    at positions 0..MESH_DECODE_POS-1; on one card, or under ``decode_ws``
+    on ``mesh``. Returns (f32 logits, launches, plain calls)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
+    from repro_torch.models.decoder import DecoderLM
+
+    check_released(dev, "mesh decode")
+    model = DecoderLM(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    B, L, pos = MESH_DECODE_B, MESH_DECODE_L, MESH_DECODE_POS
+    cache = model.init_cache(B, L, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for entry in cache:
+        for name in ("k", "v"):
+            entry[name][:, :pos] = torch.randn(entry[name][:, :pos].shape, generator=gen,
+                                               device=dev).to(entry[name].dtype)
+        entry["pos"][:, :pos] = torch.arange(pos, dtype=torch.int32, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    with torch.inference_mode():
+        if mesh is None:
+            reset_counts()
+            logits, _ = model.decode_step(params, cache, tokens=toks, pos=pos)
+        else:
+            from torch.distributed.tensor import Replicate, distribute_tensor
+
+            from repro_torch.parallel import use_sharding_ctx
+            from repro_torch.parallel.distribute import distribute_tree
+            from repro_torch.parallel.layouts import (cache_specs, layout_rules,
+                                                      param_specs, to_shardings)
+
+            rules = layout_rules(mesh, cfg, "decode", global_batch=B, layout="decode_ws")
+            dparams = distribute_tree(params, to_shardings(param_specs(params, mesh, rules),
+                                                           mesh))
+            dcache = distribute_tree(cache, to_shardings(
+                cache_specs(model, mesh, rules, B, L, shapes=cache), mesh))
+            dtoks = distribute_tensor(toks, mesh, [Replicate()] * mesh.ndim,
+                                      src_data_rank=None)
+            reset_counts()
+            with use_sharding_ctx(mesh, rules):
+                logits, _ = model.decode_step(dparams, dcache, tokens=dtoks, pos=pos)
+            logits = logits.full_tensor()
+            del dparams, dcache
+        torch.cuda.synchronize()
+        out = (logits.float(), dict(LAUNCHES), dict(PLAIN_CALLS))
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(dev, seed):
+    """Phase 13: the port on a one-rank NCCL DeviceMesh, (data, model) =
+    (1, 1), held to the meshless path on the same seed and batches. (a)
+    deepseek-coder-33b at full width, 2 of 62 layers, bf16, TRAIN_STEPS
+    steps of 2 x 4096 tokens through ``ElasticTrainer``, under its config's
+    ``cp_fsdp`` (2 microbatches of one row) and under
+    ``configs/optimized.py``'s train variant (``fsdp``, 1 microbatch,
+    flash_vjp): losses within 1e-4 (bitwise expected; which is logged),
+    every kernel's launches and backward calls equal, no plain call; step
+    ms and peak bytes of each. (b) mixtral-8x22b, 1 of 56 layers with every
+    expert, bf16: one ``decode_step`` of 8 rows against a 4096-slot cache
+    under ``decode_ws`` (B3 and the MoE twin of ``_moe_smap``, its ETP
+    branch at tp 1), logits within 3e-5 of the meshless step's (bitwise
+    expected), B3's launches equal. The meshless runs come first, before
+    the process group exists (the trainer trains on one card when there is
+    none). NCCL failing to initialise, a DTensor reaching a kernel, or a
+    kernel failing fails the phase. Returns (the mesh runs' launches,
+    summary)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.optimized import OPTIMIZED
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.init()  # the phase may run alone: its first calls read the allocator
+    base = get_config(DEEPSEEK_ARCH).replace(**MESH_TRAIN)
+    runs = {"cp_fsdp": base.replace(num_microbatches=MESH_TRAIN_BATCH),
+            "optimized": base.replace(**OPTIMIZED[DEEPSEEK_ARCH]["train"])}
+    dcfg = get_config(MIXTRAL_ARCH).replace(**MESH_DECODE)
+    log(f"mesh phase: {DEEPSEEK_ARCH} {MESH_TRAIN} train runs "
+        f"{ {k: (c.layout, c.num_microbatches, c.flash_vjp) for k, c in runs.items()} }, "
+        f"{MIXTRAL_ARCH} {MESH_DECODE} decode_ws decode")
+    plain = {name: _mesh_train_run(dev, seed, cfg, None) for name, cfg in runs.items()}
+    plain_decode = _mesh_decode(dev, seed, dcfg, None)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as store_dir:
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", store=dist.FileStore(f"{store_dir}/store", 1),
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_smoke_mesh((1, 1), device_type="cuda")
+            meshed = {name: _mesh_train_run(dev, seed, cfg, mesh)
+                      for name, cfg in runs.items()}
+            mesh_decode = _mesh_decode(dev, seed, dcfg, mesh)
+        finally:
+            dist.destroy_process_group()
+
+    summary, launches = {}, {}
+    for name in runs:
+        (pl, pms, ppeak, pcount, pbwd, _), (ml, mms, mpeak, mcount, mbwd, mplain) = (
+            plain[name], meshed[name])
+        gap = max(abs(a - b) for a, b in zip(ml, pl))
+        summary[name] = dict(
+            layout=runs[name].layout, microbatches=runs[name].num_microbatches,
+            flash_vjp=runs[name].flash_vjp, losses=ml, meshless_losses=pl,
+            max_loss_gap=gap, bitwise=ml == pl, step_ms=mms, meshless_step_ms=pms,
+            max_memory_allocated=mpeak, meshless_max_memory_allocated=ppeak,
+            launches={k: n for k, n in mcount.items() if n},
+            backward_calls={k: n for k, n in mbwd.items() if n})
+        log(f"  mesh train {name}: {json.dumps(summary[name])}")
+        if not (len(ml) == len(pl) == TRAIN_STEPS and gap <= 1e-4):
+            raise AssertionError(f"mesh train {name}: losses {ml} vs meshless {pl}")
+        if mcount != pcount or mbwd != pbwd or sum(mplain.values()):
+            raise AssertionError(f"mesh train {name}: launches {mcount} / {pcount}, backward "
+                                 f"{mbwd} / {pbwd}, plain calls {mplain}")
+        for k, n in mcount.items():
+            launches[k] = launches.get(k, 0) + n
+    (ml, mcount, mplain), (pl, pcount, _) = mesh_decode, plain_decode
+    gap = float((ml - pl).abs().max())
+    summary["decode_ws"] = dict(max_abs_logit_gap=gap, bitwise=bool(torch.equal(ml, pl)),
+                                max_abs_logit=float(pl.abs().max()),
+                                launches={k: n for k, n in mcount.items() if n})
+    log(f"  mesh decode_ws: {json.dumps(summary['decode_ws'])}")
+    if not (torch.isfinite(ml).all() and gap <= 3e-5) or mcount != pcount \
+            or sum(mplain.values()) or not mcount.get("decode_attention"):
+        raise AssertionError(f"mesh decode: gap {gap}, launches {mcount} / {pcount}, "
+                             f"plain {mplain}")
+    for k, n in mcount.items():
+        launches[k] = launches.get(k, 0) + n
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {summary['phase_s']:.1f} s")
+    if summary["phase_s"] > MESH_BUDGET_S:
+        raise AssertionError(f"mesh phase took {summary['phase_s']:.1f} s > "
+                             f"{MESH_BUDGET_S} s")
+    return launches, summary
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -3354,6 +3580,10 @@ def main(argv=None):
     by_path["moe_training"] = dict(moe_launches)
     for name, n in moe_launches.items():
         launches[name] += n
+    mesh_launches, mesh = mesh_phase(dev, args.seed)
+    by_path["mesh"] = dict(mesh_launches)
+    for name, n in mesh_launches.items():
+        launches[name] += n
 
     meta = {
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -3404,7 +3634,9 @@ def main(argv=None):
         f"{families['phase_s']:.1f} s; MoE training (mixtral-8x22b 1 layer, f32 "
         f"gradients {moe_training['grad_check']['worst_rel']:.3e} <= {LOGIT_RTOL}, "
         f"remat dots vs full {moe_training['remat']['worst_rel']:.3e}) in "
-        f"{moe_training['phase_s']:.1f} s; total "
+        f"{moe_training['phase_s']:.1f} s; mesh (deepseek-coder-33b training, "
+        f"mixtral-8x22b decode_ws on a one-rank NCCL mesh, held to the meshless "
+        f"path) in {mesh['phase_s']:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"fleet": {**fleet, "card": smi}}))
     print(json.dumps({"serving_fleet": {**serving_fleet, "card": smi}}, default=float))
@@ -3412,6 +3644,7 @@ def main(argv=None):
     print(json.dumps({"arrivals": {**arrivals, "card": smi}}))
     print(json.dumps({"families": {**families, "card": smi}}, default=float))
     print(json.dumps({"moe_training": {**moe_training, "card": smi}}, default=float))
+    print(json.dumps({"mesh": {**mesh, "card": smi}}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

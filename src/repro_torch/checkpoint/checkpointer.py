@@ -14,7 +14,13 @@
     arrays land on ``device`` (default: each template leaf's own);
   * self-describing: leaves are keyed by their ``/``-joined tree path in
     one ``.npz``, with each leaf's dtype in ``meta.json``. numpy has no
-    bfloat16, so a bf16 tensor is stored as its ``uint16`` bits.
+    bfloat16, so a bf16 tensor is stored as its ``uint16`` bits;
+  * meshes: a state of DTensors is saved as full tensors (every rank of
+    the mesh gathers each leaf; the mesh's first rank writes), and
+    ``restore(..., shardings=)`` lays each leaf out on the current mesh,
+    whatever mesh wrote it. A blocking save and a restore on a mesh end
+    and start with the mesh's ranks in step, so no rank reads a
+    checkpoint before it is written.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import key, leaves_with_paths, unflatten
+from repro_torch.parallel.sharding import is_dtensor
+from repro_torch.tree import key, get, leaves_with_paths, unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8, "int32": torch.int32, "int64": torch.int64}
@@ -62,9 +69,17 @@ class Checkpointer:
     def save(self, step: int, state, *, blocking: bool = False):
         self.wait()
         host, dtypes = {}, {}
+        mesh = None
         for path, leaf in leaves_with_paths(state):
+            if is_dtensor(leaf):
+                mesh = leaf.device_mesh
+                leaf = leaf.full_tensor()
             host[key(path)], dtypes[key(path)] = _to_host(leaf)
         meta = {"step": int(step), "keys": sorted(host), "dtypes": dtypes}
+        if mesh is not None and not _writes(mesh):
+            if blocking:
+                _in_step(mesh)
+            return
 
         def write():
             try:
@@ -85,6 +100,8 @@ class Checkpointer:
         if blocking:
             write()
             self.wait()
+            if mesh is not None:
+                _in_step(mesh)
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
@@ -116,9 +133,15 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: Optional[int] = None, device=None):
-        """Returns (state shaped like ``template``, step)."""
+    def restore(self, template, step: Optional[int] = None, device=None,
+                shardings=None):
+        """Returns (state shaped like ``template``, step). ``shardings``, a
+        tree of ``parallel.layouts.NamedSharding`` over the state's tensor
+        leaves (``to_shardings`` of ``train_state_specs``), lays each leaf
+        out as a DTensor on its mesh."""
         self.wait()
+        if shardings is not None:
+            _in_step(_any_mesh(shardings))
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -140,8 +163,36 @@ class Checkpointer:
                 if tuple(t.shape) != tuple(tmpl.shape) or t.dtype != tmpl.dtype:
                     raise ValueError(f"{k}: checkpoint has {t.dtype}{tuple(t.shape)}, "
                                      f"template {tmpl.dtype}{tuple(tmpl.shape)}")
+                if shardings is not None:
+                    from repro_torch.parallel.distribute import distribute_tree
+
+                    values.append(distribute_tree(t, get(shardings, path)))
+                    continue
                 target = tmpl.device if device is None else torch.device(device)
                 if target.type == "meta":
                     raise ValueError(f"{k}: a meta template needs a device")
                 values.append(t.to(target))
         return unflatten(template, values), step
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes a mesh's checkpoints: the mesh's first."""
+    import torch.distributed as dist
+
+    return int(mesh.mesh.flatten()[0]) == dist.get_rank()
+
+
+def _in_step(mesh) -> None:
+    """Return on every rank of ``mesh`` only once all have arrived (an
+    all-reduce over every mesh dim)."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    z = torch.zeros(1, device=mesh.device_type)
+    DTensor.from_local(z, mesh, [Partial()] * mesh.ndim, run_check=False).full_tensor()
+
+
+def _any_mesh(shardings):
+    for _, sh in leaves_with_paths(shardings):
+        if hasattr(sh, "mesh"):
+            return sh.mesh
+    raise ValueError("shardings holds no NamedSharding")

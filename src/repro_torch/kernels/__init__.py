@@ -12,6 +12,11 @@ Each kernel ships three files, as in ``repro.kernels``:
   ops.py    — the public op: a CPU tensor goes to the plain version, a CUDA
               tensor to the kernel. There is no fallback from one to the other.
 
+A kernel reads its tensors' ``data_ptr()``; a DTensor has no storage of
+its own, so every op and kernel wrapper refuses one (``refuse_dtensor``).
+On a mesh the models call the ops on local shards
+(``repro_torch.parallel.local``).
+
 ``LAUNCHES`` and ``PLAIN_CALLS`` are plain integer counters keyed by op
 name, so a run can show which path it went through: each kernel wrapper
 adds one where it launches its kernel, each plain version where it runs.
@@ -36,6 +41,14 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 # plus the model-level plain attention (``models.attention.plain=True``)
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNEL_NAMES + ("model_attention",)}
 BWD_CALLS: Dict[str, int] = {"flash_attention_bwd": 0, "flash_attention_bwd_chunked": 0}
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    from repro_torch.parallel.sharding import is_dtensor
+
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{name}: got a DTensor; a kernel takes local tensors "
+                        f"(call it on to_local() shards, repro_torch.parallel.local)")
 
 
 def reset_counts() -> None:

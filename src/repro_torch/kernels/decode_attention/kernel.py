@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_dtensor
 from repro_torch.kernels import _build
 
 SPLIT_ALIGN = 16  # keys a warp takes from each chunk (KW in the source)
@@ -152,6 +152,7 @@ def decode_attention_fwd(q, k, v, bias, *, softcap=0.0):
     """q: (B,H,hd); k,v: (B,KV,L,hd) of q's dtype, any strides with a unit
     last stride (the model passes a transposed view of its (B,L,KV,hd)
     cache); bias: (L,) or (B,L) f32. Returns (B,H,hd)."""
+    refuse_dtensor("decode_attention_fwd", q, k, v, bias)
     B, H, hd = q.shape
     KV, L = k.shape[1], k.shape[2]
     _check_common(q, k, v, bias, KV)
@@ -173,6 +174,7 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, page_table, bias, *,
     """q: (B,H,hd); k_pages,v_pages: (n_phys,bs,KV,hd) of q's dtype or int8;
     page_table: (B,P) int32, entries valid block ids; bias: (B, P*bs) f32;
     k_scale/v_scale: (n_phys,bs,KV,1) f32 for int8 pools. Returns (B,H,hd)."""
+    refuse_dtensor("paged_decode_attention_fwd", q, k_pages, v_pages, page_table, bias)
     B, H, hd = q.shape
     n_phys, bs, KV, _ = k_pages.shape
     P = page_table.shape[1]

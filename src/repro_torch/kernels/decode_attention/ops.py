@@ -3,6 +3,7 @@ tensor, the plain PyTorch version for a CPU tensor."""
 
 from __future__ import annotations
 
+from repro_torch.kernels import refuse_dtensor
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention_fwd, paged_decode_attention_fwd)
 from repro_torch.kernels.decode_attention.ref import (
@@ -12,6 +13,7 @@ from repro_torch.kernels.decode_attention.ref import (
 def decode_attention(q, k, v, bias, *, softcap=0.0):
     """q: (B,H,hd); k,v: (B,KV,L,hd); bias: (L,) shared or (B,L) per
     sequence, f32 additive. Returns (B,H,hd)."""
+    refuse_dtensor("decode_attention", q, k, v, bias)
     if q.is_cuda:
         return decode_attention_fwd(q, k, v, bias, softcap=softcap)
     if q.device.type == "cpu":
@@ -28,6 +30,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, bias, *,
     page_table: (B,P) int32; bias: (B, P*block_size) f32 additive mask.
     k_scale/v_scale: (n_phys_blocks, block_size, KV, 1) f32 when the pools
     are int8. Returns (B,H,hd)."""
+    refuse_dtensor("paged_decode_attention", q, k_pages, v_pages, page_table, bias)
     kw = dict(k_scale=k_scale, v_scale=v_scale, softcap=softcap)
     if q.is_cuda:
         return paged_decode_attention_fwd(q, k_pages, v_pages, page_table,

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_dtensor
 from repro_torch.kernels import _build
 
 _I64 = ctypes.c_int64
@@ -83,6 +83,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
     bf16), any strides with a unit last stride. Returns (B,H,Sq,hd), or
     with ``stats`` (out, m, l): each row's largest logit after softcap and
     mask, and sum exp(s - m) floored at 1e-37, (B,H,Sq) f32."""
+    refuse_dtensor("flash_attention_fwd", q, k, v)
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if not (q.is_cuda and k.device == q.device and v.device == q.device):

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import BWD_CALLS
+from repro_torch.kernels import BWD_CALLS, refuse_dtensor
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, allowed, attention_ref,
                                                     block_mask, chunk_pairs,
@@ -84,6 +84,7 @@ class _Flash(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     prefix_len=0, q_offset=0):
     """GQA flash attention. q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd)."""
+    refuse_dtensor("flash_attention", q, k, v)
     kw = dict(causal=causal, window=window, softcap=softcap,
               prefix_len=prefix_len, q_offset=q_offset)
     if q.device.type not in ("cuda", "cpu"):
@@ -163,6 +164,7 @@ def flash_attention_vjp(q, k, v, *, chunk_q, chunk_k, causal=True, window=0,
     """Flash attention whose backward is the chunked recompute from the
     forward's statistics (``cfg.flash_vjp``); chunks of ``chunk_q`` queries
     and ``chunk_k`` keys. Layouts as ``flash_attention``."""
+    refuse_dtensor("flash_attention_vjp", q, k, v)
     kw = dict(causal=causal, window=window, softcap=softcap,
               prefix_len=prefix_len, q_offset=q_offset)
     if q.device.type not in ("cuda", "cpu"):

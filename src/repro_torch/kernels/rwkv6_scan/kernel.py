@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_dtensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan.ref import n_chunks
 
@@ -155,6 +155,7 @@ def rwkv6_scan_fwd(r, k, v, w, u, s0, *, state_out=None, save_states=False,
     before every ``CHECKPOINT``-th step, (B,H,nc,hd,hd) f32. ``_cols``
     (value columns per CTA, ``fwd_plan``'s by default) is a test hook: the
     result must not depend on it."""
+    refuse_dtensor("rwkv6_scan_fwd", r, k, v, w, u, s0)
     B, H, S, hd = r.shape
     _check_inputs("rwkv6_scan_fwd", r, k, v, w, u, s0,
                   [] if state_out is None else [state_out])
@@ -190,6 +191,7 @@ def rwkv6_scan_bwd(r, k, v, w, dy, u, s_starts, dsT):
     Returns (dr, dk, dv in r's dtype, dw f32: (B,H,S,hd) views of
     (B,S,H,hd) storage; du (B,H,nc,hd) per-chunk partials and ds0
     (B,H,hd,hd), f32)."""
+    refuse_dtensor("rwkv6_scan_bwd", r, k, v, w, dy, u)
     B, H, S, hd = r.shape
     nc = n_chunks(S)
     _check_inputs("rwkv6_scan_bwd", r, k, v, w, u, dsT, [dy, s_starts])

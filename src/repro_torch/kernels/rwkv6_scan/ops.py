@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_dtensor
 from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd, rwkv6_scan_fwd
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
 
@@ -53,6 +53,7 @@ def rwkv6_scan(r, k, v, w, u, s0, *, state_out=None):
     kernel writes it directly; each CTA reads its own columns before it
     writes them). It is refused when a gradient is required: autograd would
     have saved the state the write overwrites."""
+    refuse_dtensor("rwkv6_scan", r, k, v, w, u, s0)
     if r.device.type not in ("cuda", "cpu"):
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
     if not (torch.is_grad_enabled()

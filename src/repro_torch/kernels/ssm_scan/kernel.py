@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_dtensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan.ref import n_chunks
 
@@ -104,6 +104,7 @@ def ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0, *, state_out=None, save_states=False):
     final state (may be ``h0``); a new one by default. Returns (y (B,S,Di)
     f32, hT), plus with ``save_states`` the states before every
     ``CHECKPOINT``-th step, (B, nc, Di, N) f32."""
+    refuse_dtensor("ssm_scan_fwd", x, dt, A, Bc, Cc, D, h0)
     tensors = dict(x=x, dt=dt, A=A, Bc=Bc, Cc=Cc, D=D, h0=h0)
     if state_out is not None:
         tensors["state_out"] = state_out
@@ -131,6 +132,7 @@ def ssm_scan_bwd(x, dt, A, Bc, Cc, D, dy, h_starts, dhT):
     (B,S,Di); dA (Di,N); dB, dC (B,S,N); dD (Di,); dh0 (B,Di,N)), f32. The
     kernel's per-CTA dB/dC partials and per-sequence dA/dD sums are summed
     here, in a fixed order."""
+    refuse_dtensor("ssm_scan_bwd", x, dt, A, Bc, Cc, D, dy)
     tensors = dict(x=x, dt=dt, A=A, Bc=Bc, Cc=Cc, D=D, dy=dy, h_starts=h_starts,
                    dhT=dhT)
     B, S, Di, N = _check_inputs("ssm_scan_bwd", tensors, x, A)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_dtensor
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan_bwd, ssm_scan_fwd
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
 
@@ -50,6 +51,7 @@ def ssm_scan(x, dt, A, Bc, Cc, D, h0, *, state_out=None):
     itself, so a decode step updates its cache's state in place. It is
     refused when a gradient is required: autograd would have saved the
     state the write overwrites."""
+    refuse_dtensor("ssm_scan", x, dt, A, Bc, Cc, D, h0)
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"ssm_scan: unsupported device {x.device}")
     if not (torch.is_grad_enabled()

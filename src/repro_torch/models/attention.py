@@ -39,6 +39,8 @@ from repro_torch.models.common import (NEG_INF, allow_mask, apply_rope,
                                        dense_init, mask_bias)
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.optim.compress import dequantize_int8, quantize_int8
+from repro_torch.parallel import is_dtensor, logical, logical_placements, split_last
+from repro_torch.parallel.local import local_call, local_offset, partial_where_split
 
 
 # ---------------------------------------------------------------------------
@@ -92,7 +94,7 @@ def _paged_attention_torch(qg, k, v, q_pos, k_pos, *, window, prefix_len, cap,
 
 
 def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
-                      plain: bool = False, train: bool = False):
+                      plain: bool = False, train: bool = False, q_offset: int = 0):
     """q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd). Positions are 1-D (shared by the
     batch; prefill and training self-attention over 0..S-1) or (B, S) per
     sequence (decode). Dispatch: ``plain`` -> the model-level plain math
@@ -102,7 +104,13 @@ def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
     training path has; with ``cfg.flash_vjp`` it takes the op whose forward
     also returns the softmax statistics and whose backward recomputes
     chunk by chunk (``attn_chunk_q`` x ``attn_chunk_k``), the reference's
-    ``_flash_jnp``."""
+    ``_flash_jnp``.
+
+    On DTensors (a mesh) the op runs on local shards (``_mesh_attention``);
+    ``q_offset`` is then the global index of the local q chunk's first
+    position, which the masks of prefill and training count from."""
+    if is_dtensor(q):
+        return _mesh_attention(q, k, v, q_pos, k_pos, cfg, spec, plain, train)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -111,19 +119,21 @@ def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
         kw = dict(window=window, prefix_len=cfg.prefix_len,
                   cap=cfg.attn_softcap, scale=hd**-0.5)
         qg = q.reshape(B, Sq, KV, G, hd)
-        fn = _direct_attention if q_pos.dim() == 1 else _paged_attention_torch
-        return fn(qg, k, v, q_pos, k_pos, **kw).reshape(B, Sq, H, hd)
+        if q_pos.dim() == 1:
+            return _direct_attention(qg, k, v, q_pos[q_offset:q_offset + Sq], k_pos,
+                                     **kw).reshape(B, Sq, H, hd)
+        return _paged_attention_torch(qg, k, v, q_pos, k_pos, **kw).reshape(B, Sq, H, hd)
     if Sq == 1 and not train:  # decode against a cache
         ok = allow_mask(q_pos, k_pos, window=window, prefix_len=cfg.prefix_len)
         bias = mask_bias(ok)[..., 0, :]  # (L,) or (B,L)
         o = decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
                              bias, softcap=cfg.attn_softcap)
         return o[:, None]
-    if q_pos.dim() != 1 or Sq != k.shape[1]:
+    if q_pos.dim() != 1 or q_offset + Sq > k.shape[1]:
         raise ValueError("prefill and training attention take self-attention "
                          "over positions 0..S-1")
     kw = dict(causal=True, window=window, softcap=cfg.attn_softcap,
-              prefix_len=cfg.prefix_len)
+              prefix_len=cfg.prefix_len, q_offset=q_offset)
     if train and cfg.flash_vjp:
         kw.update(chunk_q=min(cfg.attn_chunk_q, Sq), chunk_k=min(cfg.attn_chunk_k, Sq))
         op = flash_attention_vjp
@@ -131,6 +141,46 @@ def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
         op = flash_attention
     o = op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
     return o.transpose(1, 2).reshape(B, Sq, H, hd)
+
+
+def _mesh_attention(q, k, v, q_pos, k_pos, cfg, spec, plain, train):
+    """``grouped_attention`` on DTensors: each rank attends its local q
+    (its batch rows, its sequence chunk under ``cp_fsdp``, its heads under
+    ``tp``) against the whole key sequence of its rows, gathered where the
+    layout shards it (a decode cache's ``cache_len``), and the key heads
+    its q heads read. The output is laid out as q."""
+    mesh = q.device_mesh
+    qpl = logical_placements(q, "batch", "act_seq" if q.shape[1] > 1 else None,
+                             "heads", None)
+    kvpl = logical_placements(k, "batch", None, "kv_heads", None)
+    H, KV = q.shape[2], k.shape[2]
+    G = H // KV
+    q_off = local_offset(q.shape, mesh, qpl, 1)
+    h_off = local_offset(q.shape, mesh, qpl, 2)
+    kv_off = local_offset(k.shape, mesh, kvpl, 2)
+    decode = q_pos.dim() != 1
+    if decode:
+        pos_pl = logical_placements(k_pos, "batch", None)
+        qp_pl = logical_placements(q_pos, "batch", None)
+    else:
+        pos_pl = qp_pl = None
+
+    def attend(ql, kl, vl, qp, kp):
+        Hl = ql.shape[2]
+        k0 = h_off // G - kv_off
+        k1 = (h_off + Hl - 1) // G + 1 - kv_off
+        kl, vl = kl[:, :, k0:k1], vl[:, :, k0:k1]
+        if k1 - k0 != 1 and not ((k1 - k0) * G == Hl and h_off % G == 0):
+            raise ValueError(f"local heads {h_off}..{h_off + Hl} do not group over "
+                             f"key heads {k0 + kv_off}..{k1 + kv_off}")
+        return grouped_attention(ql, kl, vl, qp, kp, cfg, spec, plain, train,
+                                 q_offset=0 if decode else q_off)
+
+    kv_grad = partial_where_split(kvpl, [qpl])
+    (o,) = local_call(attend, (q, k, v, q_pos, k_pos),
+                      (qpl, kvpl, kvpl, qp_pl, pos_pl), (qpl,), mesh,
+                      grad_placements=(None, kv_grad, kv_grad, None, None))
+    return o
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +195,9 @@ def _project(p, x, cfg: ModelConfig):
     v = x @ p["wv"]
     if cfg.use_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+    return (split_last(q, (H, hd), "batch", "act_seq", "heads", None),
+            split_last(k, (KV, hd), "batch", "act_kv_seq", "kv_heads", None),
+            split_last(v, (KV, hd), "batch", "act_kv_seq", "kv_heads", None))
 
 
 def _out(p, o, cfg: ModelConfig):
@@ -215,8 +266,16 @@ def attn_train(p, x, cfg: ModelConfig, spec: LayerSpec, positions,
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _logical_qkv(q, k, v)
     o = grouped_attention(q, k, v, positions, positions, cfg, spec, plain, train=True)
+    o = logical(o, "batch", "act_seq", "heads", None)
     return _out(p, o, cfg)
+
+
+def _logical_qkv(q, k, v):
+    return (logical(q, "batch", "act_seq", "heads", None),
+            logical(k, "batch", "act_kv_seq", "kv_heads", None),
+            logical(v, "batch", "act_kv_seq", "kv_heads", None))
 
 
 def attn_prefill(p, x, cfg: ModelConfig, spec: LayerSpec, positions,
@@ -235,7 +294,9 @@ def attn_prefill(p, x, cfg: ModelConfig, spec: LayerSpec, positions,
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _logical_qkv(q, k, v)
     o = grouped_attention(q, k, v, positions, positions, cfg, spec, plain)
+    o = logical(o, "batch", "act_seq", "heads", None)
     y = _out(p, o, cfg)
 
     L = cache_len_for(cfg, spec, max_len)
@@ -253,7 +314,8 @@ def attn_prefill(p, x, cfg: ModelConfig, spec: LayerSpec, positions,
         ck = torch.roll(k[:, S - L:], shift, dims=1)
         cv = torch.roll(v[:, S - L:], shift, dims=1)
         cpos = torch.roll(pos32[S - L:], shift, dims=0)
-    cache = {"k": ck.contiguous(), "v": cv.contiguous(),
+    cache = {"k": logical(ck.contiguous(), "batch", "cache_len", "kv_heads", None),
+             "v": logical(cv.contiguous(), "batch", "cache_len", "kv_heads", None),
              "pos": cpos.expand(B, L).contiguous()}
     return y, cache
 
@@ -312,14 +374,41 @@ def attn_decode(p, x, cache, cfg: ModelConfig, spec: LayerSpec, pos,
         q = apply_rope(q, qpos, cfg.rope_theta)
         k = apply_rope(k, qpos, cfg.rope_theta)
     L = cache["k"].shape[1]
-    rows = torch.arange(B, device=x.device)
     slot = torch.remainder(pos_vec, L)
-    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][rows, slot] = pos_vec.to(torch.int32)
-    o = grouped_attention(q, cache["k"], cache["v"], qpos, cache["pos"], cfg,
-                          spec, plain)
+    _write_slots(cache["k"], slot, k[:, 0])
+    _write_slots(cache["v"], slot, v[:, 0])
+    _write_slots(cache["pos"], slot, pos_vec)
+    ck = logical(cache["k"], "batch", "cache_len", "kv_heads", None)
+    cv = logical(cache["v"], "batch", "cache_len", "kv_heads", None)
+    o = grouped_attention(q, ck, cv, qpos, cache["pos"], cfg, spec, plain)
     return _out(p, o, cfg), cache
+
+
+def _replicated(x):
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate()] * x.device_mesh.ndim
+
+
+def _write_slots(dst, slot, src):
+    """``dst[b, slot[b]] = src[b]`` for every row b, in place. On a DTensor
+    cache each rank writes the (row, slot) pairs its shard holds."""
+    if is_dtensor(slot):
+        slot = slot.full_tensor()
+    if is_dtensor(src):
+        src = src.full_tensor()
+    rows = torch.arange(dst.shape[0], device=slot.device)
+    if not is_dtensor(dst):
+        dst[rows, slot] = src.to(dst.dtype)
+        return
+    local = dst.to_local()
+    if local.device.type == "meta":  # a traced step: no values to write
+        return
+    b0 = local_offset(dst.shape, dst.device_mesh, dst.placements, 0)
+    l0 = local_offset(dst.shape, dst.device_mesh, dst.placements, 1)
+    mine = ((rows >= b0) & (rows < b0 + local.shape[0])
+            & (slot >= l0) & (slot < l0 + local.shape[1]))
+    local[rows[mine] - b0, slot[mine] - l0] = src[mine].to(local.dtype)
 
 
 def attn_decode_paged(p, x, pool, cfg: ModelConfig, spec: LayerSpec, pos_vec,
@@ -333,6 +422,21 @@ def attn_decode_paged(p, x, pool, cfg: ModelConfig, spec: LayerSpec, pos_vec,
     written into the pool in place; every slot writes unconditionally and
     the runtime points inactive slots at the TRASH block. Returns (y, pool).
     """
+    if is_dtensor(x):  # on a mesh: every rank runs the whole batch
+        rep = tuple(_replicated(x))
+        flat, names = [], []
+        for name, w in p.items():
+            flat.append(w)
+            names.append(name)
+
+        def step(xl, *ws):
+            y, _ = attn_decode_paged(dict(zip(names, ws)), xl, pool, cfg, spec,
+                                     pos_vec, pages, plain)
+            return y
+
+        (y,) = local_call(step, (x, *flat), (rep,) * (1 + len(flat)), (rep,),
+                          x.device_mesh)
+        return y, pool
     B = x.shape[0]
     KV, hd, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
     bs = pool["k"].shape[1]

@@ -66,6 +66,8 @@ from repro_torch.models import rwkv as R
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        init_norm, softcap)
 from repro_torch.models.config import ModelConfig, block_structure
+from repro_torch.parallel import is_dtensor, logical, sharding_ctx, use_sharding_ctx
+from repro_torch.parallel.local import mesh_ops
 from repro_torch.tree import leaves
 
 
@@ -156,10 +158,16 @@ class DecoderLM:
         params["layers"] = layers
         return params
 
+    def init_shape(self):
+        """The params tree on the ``meta`` device (shapes and dtypes, no
+        storage), built once and shared: treat it as read-only."""
+        if getattr(self, "_shape_tree", None) is None:
+            self._shape_tree = self.init(torch.Generator(), device="meta")
+        return self._shape_tree
+
     def param_count(self) -> int:
         """Parameters of the whole tree, from a ``meta`` init."""
-        shapes = self.init(torch.Generator(), device="meta")
-        return sum(t.numel() for t in leaves(shapes))
+        return sum(t.numel() for t in leaves(self.init_shape()))
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: only the routed share of the
@@ -168,7 +176,7 @@ class DecoderLM:
         total = self.param_count()
         if cfg.num_experts == 0:
             return total
-        shapes = self.init(torch.Generator(), device="meta")
+        shapes = self.init_shape()
         expert_leaves = sum(lp["moe"][name].numel() for lp in shapes["layers"]
                             if "moe" in lp for name in ("w_gate", "w_up", "w_out"))
         active_frac = cfg.experts_per_token / cfg.num_experts
@@ -268,17 +276,19 @@ class DecoderLM:
                                                  _save_dots)
         bs = self.block_size
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        ctx = sharding_ctx()  # a recompute may run on the autograd engine's thread
         for i in range(self.n_blocks):
             layers = list(zip(params["layers"][i * bs:(i + 1) * bs],
                               self.layer_specs[i * bs:(i + 1) * bs]))
 
             def block(x, layers=layers):
-                aux_b = torch.zeros((), dtype=torch.float32, device=x.device)
-                for lp, spec in layers:
-                    x, _, a = self._apply_layer(lp, x, spec, mode="train")
-                    if a is not None:
-                        aux_b = aux_b + a
-                return x, aux_b
+                with use_sharding_ctx(*ctx), mesh_ops(x):  # a recompute enters them too
+                    aux_b = torch.zeros((), dtype=torch.float32, device=x.device)
+                    for lp, spec in layers:
+                        x, _, a = self._apply_layer(lp, x, spec, mode="train")
+                        if a is not None:
+                            aux_b = aux_b + a
+                    return x, aux_b
 
             x, aux_b = block(x) if remat == "none" else checkpoint(block, x, **kw)
             aux = aux + aux_b
@@ -301,7 +311,7 @@ class DecoderLM:
         cfg = self.cfg
         dt = self.dtype
         if cfg.embed_inputs:
-            x = Fn.embedding(tokens.long(), params["embed"]).to(dt)
+            x = Fn.embedding(tokens.long(), _replicated(params["embed"])).to(dt)
         else:
             x = embeds.to(dt)
         if prefix_embeds is not None:
@@ -310,7 +320,7 @@ class DecoderLM:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
         if "ln0" in params:
             x = apply_norm(params["ln0"], x, cfg)
-        return x
+        return logical(x, "batch", "act_seq", None)
 
     def _unembed(self, params, x):
         cfg = self.cfg
@@ -319,7 +329,8 @@ class DecoderLM:
             logits = x @ params["embed"].to(x.dtype).T
         else:
             logits = x @ params["lm_head"].to(x.dtype)
-        return softcap(logits, cfg.final_softcap)
+        logits = softcap(logits, cfg.final_softcap)
+        return logical(logits, "batch", "act_seq", "vocab")
 
     # cache ------------------------------------------------------------------
 
@@ -327,8 +338,8 @@ class DecoderLM:
         """Dense per-layer caches: attention k/v (batch, L, KV, hd) and pos
         (batch, L); RWKV shift_tm/shift_cm (batch, d) and wkv (batch, H, hd,
         hd) f32; Mamba conv (batch, W-1, d_inner) and ssm (batch, d_inner, N)
-        f32."""
-        device = resolve_device(device)
+        f32. ``device="meta"`` gives the tree without storage."""
+        device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
         cfg, dt = self.cfg, self.dtype
         caches = []
         for spec in self.layer_specs:
@@ -339,6 +350,28 @@ class DecoderLM:
             else:
                 caches.append(A.init_cache_entry(cfg, spec, batch, max_len, dt,
                                                  device))
+        return caches
+
+    def cache_shape(self, batch: int, max_len: int):
+        """The dense cache tree of a lockstep decode (every row at one
+        position, as the reference's ``decode_step`` takes it) on the
+        ``meta`` device: ``init_cache``'s tree, except that an attention
+        layer's positions are one (L,) row shared by the batch, the
+        reference's layout, which the dry run counts. ``init_cache``
+        keeps a row per sequence, (B, L), so that slot-batched decode can
+        run each row at its own position."""
+        meta = torch.device("meta")
+        cfg, dt = self.cfg, self.dtype
+        caches = []
+        for spec in self.layer_specs:
+            if spec.mixer == "rwkv":
+                caches.append(R.init_rwkv_cache(cfg, batch, dt, meta))
+            elif spec.mixer == "mamba":
+                caches.append(M.init_mamba_cache(cfg, batch, dt, meta))
+            else:
+                entry = A.init_cache_entry(cfg, spec, batch, max_len, dt, meta)
+                entry["pos"] = entry["pos"][0]
+                caches.append(entry)
         return caches
 
     def init_paged_cache(self, n_phys_blocks: int, block_size: int,
@@ -364,9 +397,10 @@ class DecoderLM:
         (B,S,d), after prefix_embeds (B,P,d) if given. Returns (logits
         (B,P+S,V), aux): aux is the sum of the MoE layers' load-balancing
         losses, 0 without MoE layers."""
-        x = self._embed_in(params, tokens, embeds, prefix_embeds)
-        x, aux = self._train_stack(params, x)
-        return self._unembed(params, x), aux
+        with mesh_ops(_first(tokens, embeds)):
+            x = self._embed_in(params, tokens, embeds, prefix_embeds)
+            x, aux = self._train_stack(params, x)
+            return self._unembed(params, x), aux
 
     def loss(self, params, batch):
         """Next-token cross-entropy in f32 plus ``router_aux_coef * aux``.
@@ -379,32 +413,40 @@ class DecoderLM:
                second last.
 
         Returns (loss, {"loss", "ce", "aux"})."""
+        with mesh_ops(next(iter(batch.values()))):
+            return self._loss(params, batch)
+
+    def _loss(self, params, batch):
+        """The forward takes the batch leaves as they are laid out (on a
+        mesh each rank embeds its own rows); the labels are built from the
+        whole tokens, since ``aten.roll`` has no DTensor strategy."""
         cfg = self.cfg
         if cfg.family == "audio":
             logits, aux = self.forward(params, embeds=batch["embeds"])
-            labels = torch.as_tensor(batch["labels"]).to(logits.device).long()
+            labels = batch["labels"]
+            if not is_dtensor(labels):
+                labels = torch.as_tensor(labels).to(logits.device)
+            labels = labels.long()
             mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
         elif cfg.family == "vlm":
-            tokens = batch["tokens"]
-            logits, aux = self.forward(params, tokens,
+            logits, aux = self.forward(params, batch["tokens"],
                                        prefix_embeds=batch["prefix_embeds"])
+            tokens = _whole(batch["tokens"])
             P = batch["prefix_embeds"].shape[1]
             full = torch.cat([torch.zeros((tokens.shape[0], P), dtype=torch.int64,
-                                          device=logits.device), tokens.long()], dim=1)
+                                          device=tokens.device), tokens.long()], dim=1)
             labels = torch.roll(full, -1, dims=1)
             S = full.shape[1]
-            idx = torch.arange(S, device=logits.device)
+            idx = torch.arange(S, device=tokens.device)
             mask = ((idx >= P - 1) & (idx < S - 1)).float()[None].expand(labels.shape)
         else:
-            tokens = batch["tokens"]
-            logits, aux = self.forward(params, tokens)
+            logits, aux = self.forward(params, batch["tokens"])
+            tokens = _whole(batch["tokens"])
             labels = torch.roll(tokens, -1, dims=1).long()
             S = tokens.shape[1]
-            mask = (torch.arange(S, device=logits.device) < S - 1).float()
+            mask = (torch.arange(S, device=tokens.device) < S - 1).float()
             mask = mask[None].expand(labels.shape)
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        ce = -torch.gather(lp, -1, labels[..., None])[..., 0]
-        ce = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        ce = _ce(logits, labels, mask)
         loss = ce + cfg.router_aux_coef * aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -416,12 +458,13 @@ class DecoderLM:
         length, prefix included). ``true_len`` marks a right-padded
         bucketed prompt: logits come from position ``true_len - 1`` and pad
         slots carry pos=-1."""
-        x = self._embed_in(params, tokens, embeds, prefix_embeds)
-        positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
-        x, caches = self._stack(params, x, "prefill", positions=positions,
-                                max_len=max_len, true_len=true_len)
-        last = x[:, -1:] if true_len is None else x[:, int(true_len) - 1:int(true_len)]
-        return self._unembed(params, last)[:, 0], caches
+        with mesh_ops(_first(tokens, embeds)):
+            x = self._embed_in(params, tokens, embeds, prefix_embeds)
+            positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+            x, caches = self._stack(params, x, "prefill", positions=positions,
+                                    max_len=max_len, true_len=true_len)
+            last = x[:, -1:] if true_len is None else x[:, int(true_len) - 1:int(true_len)]
+            return self._unembed(params, last)[:, 0], caches
 
     def decode_step(self, params, cache, *, tokens=None, embeds=None, pos,
                     route_rows=False):
@@ -431,19 +474,70 @@ class DecoderLM:
         or each row alone with ``route_rows`` (the reference's vmap of a
         one-row step, which its dense batcher runs). Returns (logits (B,V),
         caches)."""
-        x = self._embed_in(params, tokens, embeds)
-        x, caches = self._stack(params, x, "decode", caches=cache, pos=pos,
-                                route_rows=route_rows)
-        return self._unembed(params, x)[:, 0], caches
+        with mesh_ops(_first(tokens, embeds)):
+            x = self._embed_in(params, tokens, embeds)
+            x, caches = self._stack(params, x, "decode", caches=cache, pos=pos,
+                                    route_rows=route_rows)
+            return self._unembed(params, x)[:, 0], caches
 
     def decode_step_paged(self, params, pools, *, tokens, pos_vec, pages):
         """One slot-batched decode step against paged pools. tokens: (B,1);
         pos_vec: (B,) per-slot positions; pages: (B,P) int32 page table.
         Pools update in place. Returns (logits (B,V), pools)."""
-        x = self._embed_in(params, tokens)
-        x, pools = self._stack(params, x, "decode_paged", caches=pools,
-                               pos=pos_vec, pages=pages)
-        return self._unembed(params, x)[:, 0], pools
+        with mesh_ops(tokens):
+            x = self._embed_in(params, tokens)
+            x, pools = self._stack(params, x, "decode_paged", caches=pools,
+                                   pos=pos_vec, pages=pages)
+            return self._unembed(params, x)[:, 0], pools
+
+
+def _ce_sums(logits, labels, mask):
+    """(sum of masked per-token cross-entropies in f32, sum of the mask)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    ce = -torch.gather(lp, -1, labels[..., None])[..., 0]
+    return (ce * mask).sum(), mask.sum()
+
+
+def _ce(logits, labels, mask):
+    """Masked mean cross-entropy. On a mesh each rank sums its own rows and
+    positions (the vocab gathered), and the two sums are reduced over the
+    ranks that split them."""
+    if not is_dtensor(logits):
+        num, den = _ce_sums(logits, labels, mask)
+        return num / torch.clamp(den, min=1.0)
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.parallel import logical_placements
+    from repro_torch.parallel.local import local_call
+
+    mesh = logits.device_mesh
+    lpl = logical_placements(logits, "batch", "act_seq", None)
+    tpl = logical_placements(labels, "batch", "act_seq")
+    sums = tuple(Partial() if p != Replicate() else Replicate() for p in lpl)
+    num, den = local_call(_ce_sums, (logits, labels, mask), (lpl, tpl, tpl),
+                          (sums, sums), mesh)
+    rep = [Replicate()] * mesh.ndim
+    return num.redistribute(mesh, rep) / torch.clamp(den.redistribute(mesh, rep), min=1.0)
+
+
+def _whole(t):
+    """A batch leaf as a plain tensor: a DTensor's whole value."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _replicated(t):
+    """A DTensor table gathered whole on every rank (a lookup into a
+    vocab-sharded table is a masked partial sum that DTensor cannot reduce
+    when the tokens are split too); a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def _first(*xs):
+    return next((x for x in xs if x is not None), None)
 
 
 def build_model(cfg: ModelConfig, *, plain: bool = False) -> DecoderLM:

@@ -29,6 +29,8 @@ from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.models.common import dense_init
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import is_dtensor, logical, logical_placements
+from repro_torch.parallel.local import local_call, partial_where_split
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype, device):
@@ -92,16 +94,36 @@ def _mix(p, x, cfg: ModelConfig, conv_state, h0, *, state_out=None,
     """Shared forward core. Returns (y, conv_state', hT); ``state_out``
     receives hT (it may be ``h0``)."""
     di = cfg.d_inner
-    xz = x @ p["in_proj"]
+    xz = logical(x @ p["in_proj"], "batch", "act_seq", "ssm_inner2")
     xin, z = xz[..., :di], xz[..., di:]
     xc, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc)
     dt, Bc, Cc = _ssm_params(p, xc, cfg)
     A = -torch.exp(p["A_log"])
     scan = ssm_scan_ref if plain else ssm_scan
-    y, hT = scan(xc.float(), dt, A, Bc, Cc, p["D"], h0, state_out=state_out)
-    y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"], conv_state, hT
+    if is_dtensor(xc):
+        y, hT = _mesh_scan(scan, xc.float(), dt, A, Bc, Cc, p["D"], h0)
+        if state_out is not None:
+            state_out.copy_(hT)
+    else:
+        y, hT = scan(xc.float(), dt, A, Bc, Cc, p["D"], h0, state_out=state_out)
+    y = logical((y * F.silu(z.float())).to(x.dtype), "batch", "act_seq", "ssm_inner")
+    return logical(y @ p["out_proj"], "batch", "act_seq", None), conv_state, hT
+
+
+def _mesh_scan(scan, x, dt, A, Bc, Cc, D, h0):
+    """The selective scan on local shards: each rank scans its rows and its
+    ``ssm_inner`` channels over the whole sequence (the recurrence is
+    elementwise in the channels)."""
+    xpl = logical_placements(x, "batch", None, "ssm_inner")
+    apl = logical_placements(A, "ssm_inner", None)
+    bpl = logical_placements(Bc, "batch", None, None)
+    dpl = logical_placements(D, "ssm_inner")
+    hpl = logical_placements(h0, "batch", "ssm_inner", None)
+    ins = (xpl, xpl, apl, bpl, bpl, dpl, hpl)
+    grads = tuple(partial_where_split(pl, ins) for pl in ins)
+    return local_call(lambda *a: scan(*a), (x, dt, A, Bc, Cc, D, h0), ins,
+                      (xpl, hpl), x.device_mesh, grad_placements=grads)
 
 
 def mamba_train(p, x, cfg: ModelConfig, *, plain: bool = False):

@@ -19,8 +19,15 @@ each batch row as its own group, with its own capacity, exactly as the
 reference's ``jax.vmap`` of a one-row step does (its dense batcher): the
 groups dispatch into one (G, E, C, d) buffer and share one GEMM per expert
 weight, so the expert weights are read once whatever the number of groups.
-The reference's mesh paths (``_moe_smap``: EP and ETP inside ``shard_map``)
-are mesh tooling and are not ported (ROADMAP Queue A, item 9).
+On a mesh (a sharding context and DTensor activations) ``apply_moe`` takes
+``_moe_smap``, the twin of the reference's ``shard_map`` body, written over
+local shards: expert parallelism (EP, when the experts divide the
+``moe_tp`` axes) sends each rank's dispatch buffer to the experts' owners
+and back with two ``all_to_all``s; expert-tensor parallelism (ETP) runs
+every expert on each rank's ``ff`` shard and sums the partial outputs over
+``moe_tp`` at the activation dtype. Capacity counts the rank's own tokens,
+and the load-balancing loss multiplies the assignment and probability
+vectors after averaging each over every rank.
 
 Top-k keeps the lower expert index first on equal probabilities, as
 ``jax.lax.top_k`` does (``torch.topk`` does not promise an order on ties).
@@ -35,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import act_fn, dense_init
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import P, is_dtensor, logical, sharding_ctx
 
 RECORD = None
 """Measurement hook, off while None. Set it to a list and every MoE call
@@ -85,10 +93,11 @@ def apply_mlp(p, x, cfg: ModelConfig):
         if cfg.use_bias:
             h = h + p["b_in"]
         h = act(h)
+    h = logical(h, "batch", "act_seq_mlp", "act_ff")
     y = h @ p["w_out"]
     if cfg.use_bias:
         y = y + p["b_out"]
-    return y
+    return logical(y, "batch", "act_seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +232,110 @@ def _moe_local(p, x, cfg: ModelConfig):
     return _combine(out, book, gates), _aux_loss(probs, idx, E)
 
 
+def _group(mesh, axes):
+    """The process group of the mesh axes ``axes`` (one name or several,
+    flattened in mesh order)."""
+    if isinstance(axes, str):
+        return mesh.get_group(axes)
+    return mesh[tuple(axes)]._flatten().get_group()
+
+
+def _pmean_all(v, mesh):
+    """The mean of ``v`` over every rank of ``mesh``, differentiable."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    return DTensor.from_local(v / mesh.size(), mesh, [Partial()] * mesh.ndim,
+                              run_check=False).full_tensor()
+
+
+def _moe_smap(p, x, cfg: ModelConfig, mesh, rules):
+    """EP / ETP dispatch over local shards (see the module docstring). x is
+    a DTensor (B, S, d); returns (y laid out as the tokens were dispatched,
+    aux, a replicated scalar)."""
+    from torch.distributed._functional_collectives import (all_to_all_single_autograd,
+                                                           wait_tensor)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.parallel.layouts import axis_size, placements
+    from repro_torch.parallel.local import partial_where_split
+
+    E, k = cfg.num_experts, cfg.experts_per_token
+    dp = rules.resolve("batch")
+    tp = rules.resolve("moe_tp")
+    seq = rules.resolve("act_seq")
+    tp_size = axis_size(mesh, tp)
+    use_ep = tp is not None and tp_size > 1 and E % tp_size == 0
+    tp_axes = (tp,) if isinstance(tp, str) else tuple(tp or ())
+
+    if use_ep:
+        # tokens MUST be sharded across the expert axis: a replicated token
+        # set makes every tp rank dispatch the same tokens and every expert
+        # compute them tp_size x redundantly. If the layout leaves seq
+        # unsharded, shard it over tp here.
+        seq_ax = seq
+        if seq_ax is None and x.shape[1] % tp_size == 0 and x.shape[1] > 1:
+            seq_ax = tp
+        x_spec = P(dp, seq_ax, None)
+        w_specs = dict(router=P(None, None), w_gate=P(tp, None, None),
+                       w_up=P(tp, None, None), w_out=P(tp, None, None))
+    else:
+        # ETP: each tp rank sees all tokens of its batch shard. If tp spans a
+        # batch axis (weight-stationary decode: ff sharded over data x model)
+        # the tokens must be fully replicated so the sum over tp is correct.
+        if isinstance(dp, str):
+            dp_eff = None if dp in tp_axes else dp
+        elif dp is None:
+            dp_eff = None
+        else:
+            dp_eff = tuple(a for a in dp if a not in tp_axes) or None
+        x_spec = P(dp_eff, None, None)
+        w_specs = dict(router=P(None, None), w_gate=P(None, None, tp),
+                       w_up=P(None, None, tp), w_out=P(None, tp, None))
+
+    xpl = placements(x_spec, mesh)
+    names = ("router", "w_gate", "w_up", "w_out")
+    wpl = [placements(w_specs[n], mesh) for n in names]
+    xl = x.redistribute(mesh, xpl).to_local(
+        grad_placements=partial_where_split(xpl, wpl))
+    router, wg, wu, wo = (p[n].redistribute(mesh, pl).to_local(
+        grad_placements=partial_where_split(pl, [xpl])) for n, pl in zip(names, wpl))
+
+    Bl, Sl, d = xl.shape
+    x2 = xl.reshape(1, Bl * Sl, d)
+    T = Bl * Sl
+    gates, idx, probs = _route(x2, router, k)
+    C = _capacity(T, k, E, cfg.capacity_factor)
+    disp, book = _dispatch(x2, idx, E, C)  # (1, E, C, d)
+    _record((idx, probs, book[1]))
+    if use_ep:
+        # (E, C, d) -> tp chunks of E/tp experts: chunk j to rank j of tp;
+        # rank i receives every rank's tokens for its own experts
+        group = _group(mesh, tp)
+        send = disp.reshape(E, C, d)
+        recv = wait_tensor(all_to_all_single_autograd(send, None, None, group))
+        El = E // tp_size
+        recv = recv.reshape(tp_size, El, C, d)  # (source rank, local expert, C, d)
+        out = _expert_ffn(recv, wg, wu, wo, cfg)
+        back = wait_tensor(all_to_all_single_autograd(
+            out.reshape(E, C, d), None, None, group))
+        y = _combine(back.reshape(1, E, C, d), book, gates)
+        y = DTensor.from_local(y.reshape(Bl, Sl, d), mesh, xpl, run_check=False)
+    else:
+        out = _expert_ffn(disp, wg, wu, wo, cfg)  # partial over the ff shards
+        y = _combine(out, book, gates).reshape(Bl, Sl, d).to(xl.dtype)
+        ypl = [Partial() if names_ in tp_axes else pl
+               for names_, pl in zip(mesh.mesh_dim_names, xpl)]
+        y = DTensor.from_local(y, mesh, ypl, run_check=False).redistribute(mesh, xpl)
+    # the aux loss needs the globally averaged f_e and P_e (a mean of
+    # products over shards is not the global product): average first
+    assign = F.one_hot(idx.reshape(-1), E).float().mean(0)
+    f = _pmean_all(assign, mesh)
+    pm = _pmean_all(probs.reshape(-1, E).mean(0), mesh)
+    aux = DTensor.from_local(E * (f * pm).sum(), mesh, [Replicate()] * mesh.ndim,
+                             run_check=False)
+    return y, aux
+
+
 def apply_moe(p, x, cfg: ModelConfig, route_rows: bool = False):
     """x (B, S, d). Returns (y (B, S, d), aux): the B*S tokens route as one
     group, or with ``route_rows`` each row as a group of S tokens, and aux
@@ -232,10 +345,39 @@ def apply_moe(p, x, cfg: ModelConfig, route_rows: bool = False):
     capacity, as the reference does without a mesh. The shared
     expert, where the config has one, is added to every token."""
     B, S, d = x.shape
-    xg = x if route_rows else x.reshape(1, B * S, d)
-    impl = _moe_dense if cfg.moe_impl == "dense" else _moe_local
-    y, aux = impl(p, xg, cfg)
-    y = y.reshape(B, S, d)
+    mesh, rules = sharding_ctx()
+    if is_dtensor(x) and mesh is not None and rules is not None:
+        if route_rows:
+            raise NotImplementedError("route_rows (the dense batcher's step) "
+                                      "runs without a mesh")
+        if cfg.moe_impl == "dense":
+            y, aux = _moe_dense_replicated(p, x, cfg)
+        else:
+            y, aux = _moe_smap(p, x, cfg, x.device_mesh, rules)
+    else:
+        xg = x if route_rows else x.reshape(1, B * S, d)
+        impl = _moe_dense if cfg.moe_impl == "dense" else _moe_local
+        y, aux = impl(p, xg, cfg)
+        y, aux = y.reshape(B, S, d), aux.mean()
     if cfg.shared_expert:
         y = y + apply_mlp(p["shared"], x, cfg)
-    return y, aux.mean()
+    return logical(y, "batch", "act_seq", None), aux
+
+
+def _moe_dense_replicated(p, x, cfg: ModelConfig):
+    """``moe_impl="dense"`` on a mesh: every rank runs every token through
+    every expert, as the reference's dense path does under a mesh (XLA
+    replicates what it needs)."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.parallel.local import local_call
+
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    names = ("router", "w_gate", "w_up", "w_out")
+
+    def dense(xl, *ws):
+        y, aux = _moe_dense(dict(zip(names, ws)), xl.reshape(1, -1, xl.shape[-1]), cfg)
+        return y.reshape(xl.shape), aux.mean()
+
+    return local_call(dense, (x, *(p[n] for n in names)), (rep,) * 5, (rep, rep), mesh)

@@ -30,6 +30,8 @@ from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.models.common import dense_init
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import is_dtensor, logical, logical_placements, split_last
+from repro_torch.parallel.local import local_call, partial_where_split
 
 _TM_LORA = 32  # token-mix lora rank (the reference ignores cfg.rwkv_lora_dim)
 _DECAY_LORA = 64
@@ -95,7 +97,8 @@ def _tm_projections(p, x, shifted):
     xxx = x + xx * p["maa_x"]
     sx = torch.tanh(xxx @ p["tm_w1"])
     B, S = x.shape[:2]
-    sx = sx.reshape(B, S, 5, _TM_LORA).permute(2, 0, 1, 3)  # (5,B,S,lora)
+    sx = split_last(sx, (5, _TM_LORA), "batch", "act_seq", None, None)
+    sx = sx.permute(2, 0, 1, 3)  # (5,B,S,lora)
     offs = torch.einsum("nbsl,nld->nbsd", sx, p["tm_w2"])
     return x[None] + xx[None] * (p["maa_rkvwg"][:, None, None, :] + offs)
 
@@ -108,26 +111,44 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, shift_state=None, wkv_state=None, *,
     B, S, d = x.shape
     H, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
     shifted, new_shift = _shift(x, shift_state)
-    mr, mk, mv, mw, mg = _tm_projections(p, x, shifted)
+    mr, mk, mv, mw, mg = logical(_tm_projections(p, x, shifted), None, "batch", "act_seq")
 
     # (B,S,H,hd) projections, passed to the scan as (B,H,S,hd) views
-    r = (mr @ p["wr"]).reshape(B, S, H, hd).transpose(1, 2)
-    k = (mk @ p["wk"]).reshape(B, S, H, hd).transpose(1, 2)
-    v = (mv @ p["wv"]).reshape(B, S, H, hd).transpose(1, 2)
+    r = split_last(mr @ p["wr"], (H, hd), "batch", "act_seq", "heads", None).transpose(1, 2)
+    k = split_last(mk @ p["wk"], (H, hd), "batch", "act_seq", "heads", None).transpose(1, 2)
+    v = split_last(mv @ p["wv"], (H, hd), "batch", "act_seq", "heads", None).transpose(1, 2)
     g = F.silu(mg @ p["wg"])
     decay = p["decay_base"] + torch.tanh(mw @ p["decay_w1"]).float() @ p[
         "decay_w2"].float()
-    w = torch.exp(-torch.exp(decay.float())).reshape(B, S, H, hd).transpose(1, 2)
+    w = split_last(torch.exp(-torch.exp(decay.float())), (H, hd), "batch", "act_seq",
+                   "heads", None).transpose(1, 2)
 
     if wkv_state is None:
         wkv_state = torch.zeros((B, H, hd, hd), dtype=torch.float32,
                                 device=x.device)
     scan = rwkv6_scan_ref if plain else rwkv6_scan
-    y, sT = scan(r, k, v, w, p["bonus"].float(), wkv_state, state_out=state_out)
+    if is_dtensor(r):
+        y, sT = _mesh_scan(scan, r, k, v, w, p["bonus"].float(), wkv_state)
+        if state_out is not None:
+            state_out.copy_(sT)
+    else:
+        y, sT = scan(r, k, v, w, p["bonus"].float(), wkv_state, state_out=state_out)
     y = y.transpose(1, 2).reshape(B, S, d)
     y = _group_norm(y.to(x.dtype), p["ln_x"], H)
     y = (y * g).to(x.dtype)
-    return y @ p["wo"], new_shift, sT
+    return logical(y @ p["wo"], "batch", "act_seq", None), new_shift, sT
+
+
+def _mesh_scan(scan, r, k, v, w, u, s0):
+    """The WKV scan on local shards: each rank scans its rows (and its
+    heads, where the layout shards them) over the whole sequence."""
+    rpl = logical_placements(r, "batch", "heads", None, None)
+    upl = logical_placements(u, "heads", None)
+    spl = logical_placements(s0, "batch", "heads", None, None)
+    ins = (rpl, rpl, rpl, rpl, upl, spl)
+    grads = tuple(partial_where_split(pl, ins) for pl in ins)
+    return local_call(lambda *a: scan(*a), (r, k, v, w, u, s0), ins, (rpl, spl),
+                      r.device_mesh, grad_placements=grads)
 
 
 def rwkv_channel_mix(p, x, cfg: ModelConfig, shift_state=None):
@@ -136,8 +157,9 @@ def rwkv_channel_mix(p, x, cfg: ModelConfig, shift_state=None):
     xx = shifted - x
     xk = x + xx * p["maa_k"]
     xr = x + xx * p["maa_r"]
-    h = torch.square(torch.relu(xk @ p["wk"]))
-    return torch.sigmoid(xr @ p["wr"]) * (h @ p["wv"]), new_shift
+    h = logical(torch.square(torch.relu(xk @ p["wk"])), "batch", "act_seq_mlp", "act_ff")
+    y = torch.sigmoid(xr @ p["wr"]) * (h @ p["wv"])
+    return logical(y, "batch", "act_seq", None), new_shift
 
 
 def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype, device):

@@ -16,6 +16,13 @@ per-layer leaf is decayed, 1-D norm scales, biases, ``maa_*`` and ``ln_x``
 included, and only top-level 1-D leaves (``ln0``, ``final_norm``) are not.
 The port keeps one dict per layer under ``params["layers"]``; a leaf there
 counts one more dimension.
+
+On a mesh the leaves are DTensors: the global-norm clip sums over every
+shard, each gradient is laid out as its param (``redistribute``: the
+reduce-scatter of FSDP), and the update runs on the local shards, which it
+writes in place. An int8 moment's row scale is the max over the whole row:
+where the last dimension is split over ranks, the local row maxima are
+reduced over them first.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 
 from repro_torch.optim.compress import (dequantize_int8, error_feedback_compress,
                                         init_residual, quantize_int8)
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.tree import get, leaves, leaves_with_paths, map_tree
 
 TrainState = Dict[str, Any]  # {"params": ..., "opt": ..., "step": int}
@@ -55,11 +63,23 @@ class AdamW:
     # ----------------------------------------------------------------- state
 
     def _moment_zero(self, _, p):
-        if self.moments_dtype == "int8":
-            return {"q": torch.zeros(p.shape, dtype=torch.int8, device=p.device),
-                    "s": torch.zeros(p.shape[:-1] + (1,) if p.ndim else (1,),
-                                     dtype=torch.float32, device=p.device)}
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        """A zero moment of ``p``. A DTensor param's moments are DTensors
+        laid out as it; an int8 moment's scale (..., 1) replicates the last
+        dim."""
+        if self.moments_dtype != "int8":
+            return torch.zeros_like(p, dtype=torch.float32)
+        sshape = p.shape[:-1] + (1,) if p.ndim else (1,)
+        if is_dtensor(p):
+            from torch.distributed.tensor import Replicate, distribute_tensor
+
+            pl = [Replicate() if getattr(x, "dim", None) == p.ndim - 1 else x
+                  for x in p.placements]
+            s = distribute_tensor(torch.zeros(sshape, dtype=torch.float32,
+                                              device=p.to_local().device),
+                                  p.device_mesh, pl, src_data_rank=None)
+        else:
+            s = torch.zeros(sshape, dtype=torch.float32, device=p.device)
+        return {"q": torch.zeros_like(p, dtype=torch.int8), "s": s}
 
     def init(self, params):
         opt = {"m": map_tree(self._moment_zero, params),
@@ -78,9 +98,9 @@ class AdamW:
             return dequantize_int8(mom["q"], mom["s"])
         return mom
 
-    def _store(self, mom, val):
+    def _store(self, mom, val, reduce_amax=None):
         if self.moments_dtype == "int8":
-            q, s = quantize_int8(val)
+            q, s = quantize_int8(val, reduce_amax)
             mom["q"].copy_(q)
             mom["s"].copy_(s)
         else:
@@ -119,6 +139,8 @@ class AdamW:
         gl = leaves(grads)
         if self.grad_clip and self.grad_clip > 0:  # global-norm clip in f32
             gnorm = torch.sqrt(sum(torch.sum(torch.square(as_f32(g))) for g in gl))
+            if is_dtensor(gnorm):
+                gnorm = gnorm.full_tensor()
             clip = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
         else:
             clip = 1.0
@@ -126,9 +148,14 @@ class AdamW:
         for (path, p), g in zip(leaves_with_paths(params), gl):
             m, v = get(opt_state["m"], path), get(opt_state["v"], path)
             wd = decays(path, p)
+            reduce_amax = None
+            if is_dtensor(p):
+                g = g.redistribute(p.device_mesh, p.placements).to_local()
+                reduce_amax = _row_max_over_shards(p)
+                p, m, v = p.to_local(), _local(m), _local(v)
             for rows in _row_slices(p):
                 self._update_rows(p[rows], as_f32(g[rows]) * clip, self._slice(m, rows),
-                                  self._slice(v, rows), lr, c1, c2, wd)
+                                  self._slice(v, rows), lr, c1, c2, wd, reduce_amax)
         return params, opt_state
 
     def _slice(self, mom, rows):
@@ -136,7 +163,7 @@ class AdamW:
             return {"q": mom["q"][rows], "s": mom["s"][rows]}
         return mom[rows]
 
-    def _update_rows(self, p, gf, m, v, lr, c1, c2, wd: bool):
+    def _update_rows(self, p, gf, m, v, lr, c1, c2, wd: bool, reduce_amax=None):
         mf = self.b1 * self._load(m) + (1 - self.b1) * gf
         vf = self.b2 * self._load(v) + (1 - self.b2) * torch.square(gf)
         del gf
@@ -144,8 +171,31 @@ class AdamW:
         if wd:
             upd = upd + self.weight_decay * p.float()
         p.copy_((p.float() - lr * upd).to(p.dtype))
-        self._store(m, mf)
-        self._store(v, vf)
+        self._store(m, mf, reduce_amax)
+        self._store(v, vf, reduce_amax)
+
+
+def _local(mom):
+    if isinstance(mom, dict):
+        return {k: t.to_local() for k, t in mom.items()}
+    return mom.to_local()
+
+
+def _row_max_over_shards(p):
+    """For a DTensor param whose last dim is split over mesh dims: a
+    function that turns local row maxima into the rows' global maxima
+    (``all_reduce`` MAX over those dims' groups); else None."""
+    mesh = p.device_mesh
+    dims = [i for i, pl in enumerate(p.placements)
+            if p.ndim and getattr(pl, "dim", None) == p.ndim - 1]
+    if not dims:
+        return None
+    import torch.distributed as dist
+
+    def reduce(amax):
+        for i in dims:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=mesh.get_group(i))
+    return reduce
 
 
 SLICE_ELEMENTS = 1 << 25  # f32 temporaries of 128 MB per slice

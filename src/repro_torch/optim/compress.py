@@ -13,9 +13,13 @@ import torch
 from repro_torch.tree import leaves, map_tree, unflatten
 
 
-def quantize_int8(x):
+def quantize_int8(x, reduce_amax=None):
+    """``reduce_amax``, where given, takes each row's local max in place and
+    makes it the max over the row's shards (a last dim split over ranks)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
+    if reduce_amax is not None:
+        reduce_amax(amax)
     scale = torch.clamp(amax, min=1e-20) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale

@@ -1412,3 +1412,154 @@ def test_moe_backward_on_the_card_is_bitwise_repeatable(cuda):
         y, aux = mlp.apply_moe(dict(zip(p, leaves[1:])), leaves[0], cfg)
         runs.append(torch.autograd.grad((y.square().sum() + aux), leaves))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ---------------------------------------------------------------- meshes
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL process group and its (1, 1) (data, model) mesh on
+    the card (NCCL refuses two ranks on one device: the multi-rank checks
+    run on the CPU under gloo, tests/test_torch_mesh.py)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield make_smoke_mesh((1, 1), device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_kernel_wrappers_refuse_dtensors(nccl_mesh):
+    """A kernel reads data_ptr(): every wrapper and op raises on a DTensor
+    instead of launching on a wrapper with no storage of its own."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    rep = [Replicate(), Replicate()]
+
+    def d(t):
+        return distribute_tensor(t, nccl_mesh, rep)
+
+    q = d(torch.zeros(1, 2, 16, 32, device="cuda"))
+    qd, kd = d(torch.zeros(1, 2, 32, device="cuda")), d(torch.zeros(1, 2, 16, 32, device="cuda"))
+    x, A, bc, h0 = (d(torch.zeros(1, 4, 32, device="cuda")), d(torch.zeros(32, 16, device="cuda")),
+                    d(torch.zeros(1, 4, 16, device="cuda")), d(torch.zeros(1, 32, 16, device="cuda")))
+    r, u, s0 = (d(torch.zeros(1, 2, 16, 32, device="cuda")), d(torch.zeros(2, 32, device="cuda")),
+                d(torch.zeros(1, 2, 32, 32, device="cuda")))
+    D = d(torch.zeros(32, device="cuda"))
+    reset_counts()
+    for call in (lambda: flash_attention_fwd(q, q, q), lambda: flash_attention(q, q, q),
+                 lambda: decode_attention_fwd(qd, kd, kd, d(torch.zeros(16, device="cuda"))),
+                 lambda: decode_attention(qd, kd, kd, d(torch.zeros(16, device="cuda"))),
+                 lambda: ssm_scan_fwd(x, x, A, bc, bc, D, h0),
+                 lambda: ssm_scan(x, x, A, bc, bc, D, h0),
+                 lambda: rwkv6_scan_fwd(r, r, r, r, u, s0),
+                 lambda: rwkv6_scan(r, r, r, r, u, s0)):
+        with pytest.raises(TypeError, match="DTensor"):
+            call()
+    assert sum(LAUNCHES.values()) == 0
+
+
+def test_local_attention_on_a_mesh_equals_meshless(nccl_mesh):
+    """Attention on DTensors under cp_fsdp rules runs B2 on local shards
+    (``models.attention._mesh_attention``) and equals the meshless call bit
+    for bit, forward and gradients."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.attention import grouped_attention
+    from repro_torch.models.config import block_structure
+    from repro_torch.parallel import logical_placements, use_sharding_ctx
+    from repro_torch.parallel.layouts import layout_rules
+
+    cfg = smoke_config("deepseek-coder-33b").replace(head_dim=64)
+    spec = block_structure(cfg)[2][0]
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    B, S, H, KV, hd = 2, 128, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = (_randn(gen, (B, S, n, hd), torch.bfloat16, torch.device("cuda"))
+               for n in (H, KV, KV))
+    pos = torch.arange(S, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_counts()
+    ref = grouped_attention(*leaves, pos, pos, cfg, spec, train=True)
+    ref_grads = torch.autograd.grad(ref.float().square().sum(), leaves)
+    rules = layout_rules(nccl_mesh, cfg, "train", global_batch=B, layout="cp_fsdp")
+    with use_sharding_ctx(nccl_mesh, rules):
+        names = (("batch", "act_seq", "heads", None),
+                 ("batch", "act_kv_seq", "kv_heads", None),
+                 ("batch", "act_kv_seq", "kv_heads", None))
+        dl = [distribute_tensor(t.clone(), nccl_mesh, logical_placements(t, *n))
+              .requires_grad_(True) for t, n in zip((q, k, v), names)]
+        out = grouped_attention(*dl, pos, pos, cfg, spec, train=True)
+        grads = torch.autograd.grad(out.float().square().sum(), dl)
+    assert LAUNCHES["flash_attention"] == 2 and sum(PLAIN_CALLS.values()) == 0
+    assert torch.equal(out.full_tensor(), ref)
+    for g, r in zip(grads, ref_grads):
+        assert torch.equal(g.full_tensor(), r)
+
+
+def test_mixtral_smoke_mesh_train_step_equals_meshless_on_the_card(nccl_mesh):
+    """One train step of mixtral's smoke config (MoE twin of ``_moe_smap``
+    at tp 1, B2 on local shards) on the (1, 1) mesh against the step
+    without one: the same loss and params."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant_schedule
+    from repro_torch.parallel import use_sharding_ctx
+    from repro_torch.parallel.distribute import distribute_tree, full_tree
+    from repro_torch.parallel.layouts import layout_rules, param_specs, to_shardings
+    from repro_torch.tree import leaves, map_tree
+
+    cfg = smoke_config("mixtral-8x22b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(61), device="cuda")
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 64)), device="cuda")}
+    opt = AdamW(lr=constant_schedule(1e-3))
+    plain_state, pm = make_train_step(model, opt)(
+        opt.init_state(map_tree(lambda _, t: t.clone(), params)), batch)
+    rules = layout_rules(nccl_mesh, cfg, "train", global_batch=4)
+    dp = distribute_tree(params, to_shardings(param_specs(params, nccl_mesh, rules), nccl_mesh))
+    with use_sharding_ctx(nccl_mesh, rules):
+        state, m = make_train_step(model, opt)(opt.init_state(dp), batch)
+    assert abs(float(m["loss"]) - float(pm["loss"])) <= 1e-5
+    for a, b in zip(leaves(full_tree(state["params"])), leaves(plain_state["params"])):
+        assert (a - b).abs().max() <= 1e-4
+
+
+def _nccl_rank_probe(rank):
+    import torch.distributed as dist
+
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(x)
+    return dist.get_backend(), torch.cuda.current_device(), x.cpu().tolist()
+
+
+def test_spawned_nccl_rank_runs_on_its_card(cuda, tmp_path):
+    """``parallel.spawn`` with ``backend="nccl"``: rank r on card r (the
+    ranks of ``examples/train_elastic.py`` on cards)."""
+    from repro_torch.parallel.spawn import run_ranks
+
+    got = run_ranks(_nccl_rank_probe, 1, store_dir=str(tmp_path), timeout_s=120,
+                    backend="nccl")
+    assert got == [("nccl", 0, [1.0] * 4)]
+
+
+def test_train_elastic_example_wants_eight_cards(cuda):
+    """The example's default runs 8 NCCL ranks, one a card: with fewer
+    cards it raises, naming ``--device cpu``."""
+    from repro_torch.examples import train_elastic
+
+    if torch.cuda.device_count() >= train_elastic.RANKS:
+        pytest.skip("this machine has the cards; the refusal is for fewer")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_elastic.main([])

@@ -281,13 +281,14 @@ def test_decoder_refuses_unported_mixers_and_default_device(tmp_path):
     serves it, and it trains: ``make_train_step`` takes a step with its
     experts, and the training launcher trains mixtral's smoke config.
     ``remat="dots"`` runs the forward the other policies run. What the port
-    still refuses: more than one device. Entry points default to cuda and
-    raise without a card."""
+    still refuses: more than one device without a process group (a mesh
+    needs ``torch.distributed``, tests/test_torch_mesh.py). Entry points
+    default to cuda and raise without a card."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import main as train_main
     from repro_torch.optim.adamw import AdamW
     from repro_torch.optim.schedule import constant_schedule
-    from repro_torch.runtime.elastic import _one_device
+    from repro_torch.runtime.elastic import ElasticTrainer
 
     jamba = build_model(smoke_config("jamba-1.5-large-398b"))
     assert sum("moe" in lp for lp in jamba.init(
@@ -302,8 +303,8 @@ def test_decoder_refuses_unported_mixers_and_default_device(tmp_path):
     full, _ = build_model(smoke_config("starcoder2-3b").replace(remat="full")).forward(
         sc_params, toks)
     assert torch.equal(dots, full)
-    with pytest.raises(NotImplementedError, match="devices"):
-        _one_device(["cpu", "cpu"])
+    with pytest.raises(ValueError, match="devices need a mesh"):
+        ElasticTrainer(None, None, None, None, devices=["cpu", "cpu"])
     opt = AdamW(lr=constant_schedule(1e-3))
     jparams = jamba.init(torch.Generator().manual_seed(0), device="cpu")
     state, metrics = make_train_step(jamba, opt)(

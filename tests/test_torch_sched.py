@@ -327,7 +327,10 @@ def test_port_passes_the_reference_linter():
             "runtime/serving_torch.py", "kernels/serving_fleet/ref.py",
             "launch/smoke.py", "examples/serve_multitenant.py",
             "examples/quickstart.py", "examples/trace_replay.py",
-            "workload/arrivals.py", "runtime/threefry.py"} <= scanned
+            "workload/arrivals.py", "runtime/threefry.py",
+            "parallel/sharding.py", "parallel/layouts.py", "parallel/local.py",
+            "parallel/distribute.py", "parallel/spawn.py", "launch/dryrun.py",
+            "launch/mesh.py", "launch/specs.py"} <= scanned
     out = subprocess.run(
         [sys.executable, "-m", "repro.analysis.lint", "--root",
          str(SRC / "repro_torch"), "--rules", "determinism,obs-hygiene,static-shape"],

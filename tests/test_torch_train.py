@@ -320,12 +320,16 @@ def test_elastic_trainer_preempt_resume_and_determinism(tmp_path):
 
 
 def test_elastic_trainer_refuses_meshes(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
+    """Without a process group the trainer is the one-device one: model
+    parallelism, several devices and a revocation to several devices need a
+    mesh, which trains once ``torch.distributed`` is initialised
+    (tests/test_torch_mesh.py)."""
+    with pytest.raises(ValueError, match="needs a mesh"):
         _trainer(tmp_path, model_par=2)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="need a mesh"):
         ElasticTrainer(None, None, None, None, devices=["cpu", "cpu"])
     tr = _trainer(tmp_path)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         tr.run(3, preempt_at={1: 2}, checkpoint_every=0)
 
 
