@@ -2,9 +2,12 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --mesh-ranks 4
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and outside a
-checkout of the repository. Phases (none catches its own failure):
+checkout of the repository. ``--mesh-ranks 4`` builds the kernels and runs
+only phase 13 on four NCCL ranks, one card each (``mesh4_phase``; it
+raises with fewer than four cards). Phases (none catches its own failure):
 
 1. build — every ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a), in
    parallel; each kernel entry's registers, shared memory and spills from
@@ -29,6 +32,14 @@ checkout of the repository. Phases (none catches its own failure):
    layout, one 8192-token row), bf16 and f32: out, m and l against the
    plain chunked online softmax (512 x 1024 chunks), its output equal to
    the launch without statistics bit for bit, timed beside that launch.
+   B3 with its softmax statistics (``stats=True``, the
+   ``decode_attention_stats`` row; ``DECODE_STATS_CASES``) at phase 13's
+   decode (mixtral's layout, 8 slots of 4096, timed beside the launch
+   without statistics), at a rank's shard of the 4-rank decode
+   (deepseek-coder's layout, 4 of 16384) and at hd 64 and 256 over ragged
+   lengths with softcap, with NULL slots: its f32 o rounded to q's dtype
+   equal to B3's o bit for bit, o at the dtype's tolerance, m within 2e-5
+   and l within rtol 2e-5 of the plain version.
    Decode bounds count the visible keys only (the kernels read every
    position). Tolerances atol 2e-5 for f32 and int8-dequantised
    pools, 2e-2 for bf16. The RWKV-6 scan at rwkv6-3b's (H=40, hd=64): a
@@ -233,12 +244,21 @@ checkout of the repository. Phases (none catches its own failure):
    logged), every kernel's launches and backward calls equal, no plain
    call; step ms and peak bytes of each. (b) mixtral-8x22b, 1 of 56 layers
    with every expert, bf16: one ``decode_step`` of 8 rows against a
-   4096-slot cache under ``decode_ws`` rules (B3, and the MoE layer's twin
-   of ``_moe_smap`` in its ETP branch at tp 1) against the meshless step:
-   logits within 3e-5 (the reference's ``decode_ws`` tolerance), B3's
-   launches equal. A ``mesh`` JSON line goes before the kernel table, and
-   the mesh runs' launches join its counts as the ``mesh`` path. The phase
-   must end within 90 s.
+   4096-slot cache under ``decode_ws`` rules (B3 with statistics, which a
+   decode on a mesh takes, and the MoE layer's twin of ``_moe_smap`` in
+   its ETP branch at tp 1) against the meshless step: logits within 3e-5
+   (the reference's ``decode_ws`` tolerance), as many B3 launches. A
+   ``mesh`` JSON line goes before the kernel table, and the mesh runs'
+   launches join its counts as the ``mesh`` path. The phase must end
+   within 90 s. With ``--mesh-ranks 4`` the phase runs instead on four
+   NCCL ranks (``mesh4_phase``): (a) on (2, 2) and (1, 4), in f32 and in
+   bf16, (b) f32 decodes
+   over a 32,768-slot cache sharded over "model" and over both axes,
+   (c) mixtral-8x22b's decode_ws step in f32 with expert parallelism
+   (``all_to_all``), (d) an elastic 4 -> 2 -> 4 rescale beside the same on
+   four gloo ranks; each held to one card, with the NCCL kernels' device
+   time and a step's host ms; a ``mesh4`` JSON line, the card, and the
+   ``ok`` line (count 4). It must end within MESH4_BUDGET_S.
 
 ``--jamba-grad-study SEED [SEED ...]`` builds the kernels and runs only
 ``jamba_grad_phase`` for each seed, printing how far each mixer leaf lies
@@ -270,6 +290,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import pathlib
 import shutil
 import subprocess
@@ -452,6 +473,21 @@ DECODE_CASES = (
     dict(layout="deepseek-coder-33b/yi-34b"),
     dict(layout="musicgen-medium"),
     dict(layout="paligemma-3b"),
+)
+# B3 with its softmax statistics (``stats=True``, the ``decode_attention_stats``
+# row), which every decode on a mesh takes: at phase 13's one-rank decode
+# (mixtral-8x22b's layout, 8 slots of 4096 positions, 4001 visible; timed),
+# at one rank's shard of the 4-rank decode (``--mesh-ranks 4``: 4 rows of
+# deepseek-coder-33b's 16384 slots), and at hd 64 and 256 over ragged
+# lengths with softcap; every case but the timed one with a slot whose every
+# position is masked. bf16, and f32 where ``f32``
+DECODE_STATS_CASES = (
+    dict(layout="mixtral-8x22b", B=8, L=4096, valid=(4001,) * 8, row=""),
+    dict(layout="deepseek-coder-33b/yi-34b", B=4, L=16384, valid=(16384, 9000, 1, 0),
+         f32=True),
+    dict(layout="musicgen-medium", B=4, L=1000, valid=(1000, 517, 0, 3), f32=True),
+    dict(layout=(8, 1, 256, 0, 0), B=4, L=777, valid=(777, 0, 300, 5), softcap=50.0,
+         f32=True),
 )
 PAGE = 16                     # the batcher's KV block size
 # B2 with its softmax statistics at phase 12's training shape: one row of
@@ -687,6 +723,52 @@ def kernel_phase(dev):
                     del qk, qv, ks, vs, o8
                 del pools, po
             del q, caches, views, o
+    log("kernel phase: decode_attention with softmax statistics (B3, stats=True)")
+    for case in DECODE_STATS_CASES:
+        label, H, KV, hd, W, prefix = _case_layout(case)
+        B, L, cap = case["B"], case["L"], case.get("softcap", 0.0)
+        pos = torch.arange(L, device=dev)[None]
+        valid = torch.tensor(case["valid"], device=dev)
+        ok = (pos < valid[:, None]) & (pos >= valid[:, None] - W if W else True)
+        bias = torch.where(ok, 0.0, NEG_INF).float()
+        for dtype in (bf16, f32) if case.get("f32") else (bf16,):
+            q = randn((B, H, hd), dtype)
+            kt, vt = (randn((B, L, KV, hd), dtype).transpose(1, 2) for _ in range(2))
+            got = decode_attention_fwd(q, kt, vt, bias, softcap=cap, stats=True)
+            ref = decode_attention_ref(q, kt, vt, bias, softcap=cap, stats=True)
+            name = f"decode stats {dtype} {label} B={B} L={L} softcap={cap:g}"
+            if not torch.equal(got[0].to(dtype), decode_attention_fwd(q, kt, vt, bias,
+                                                                      softcap=cap)):
+                raise AssertionError(f"{name}: o rounded to {dtype} differs from the "
+                                     f"launch without statistics")
+            err = held("decode_attention_stats", f"{name} o", got[0], ref[0], dtype)
+            held("decode_attention_stats", f"{name} m (atol 2e-5)", got[1], ref[1], f32)
+            l_rel = float(((got[2] - ref[2]).abs() / ref[2]).max())
+            log(f"  {name} l: max rel err {l_rel:.3e} (rtol 2e-5)")
+            if not l_rel <= 2e-5:
+                raise AssertionError(f"{name}: l off by {l_rel} relative")
+            if "row" in case and dtype == bf16:
+                visible = int(ok.sum())
+                add_row("decode_attention_stats", case["row"], label, dict(
+                    max_abs_err=err,
+                    ms=kernel_device_ms(lambda: decode_attention_fwd(
+                        q, kt, vt, bias, stats=True), 40, "decode_kernel",
+                        "decode_attention_stats", 2),
+                    nostats_ms=kernel_device_ms(lambda: decode_attention_fwd(
+                        q, kt, vt, bias), 40, "decode_kernel", "decode_attention", 2),
+                    plain_ms=time_ms(lambda: decode_attention_ref(
+                        q, kt, vt, bias, stats=True), 20),
+                    library_ms=library_device_ms(lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], kt, vt, attn_mask=bias[:, None, None, :],
+                        enable_gqa=True), 40),
+                    **decode_bound(q, KV * hd * kt.element_size(), visible,
+                                   nbytes(q, bias, *got), "bfloat16"),
+                    shape=f"B={B} H={H} KV={KV} L={L} hd={hd} "
+                          f"{f'window={W} ' if W else ''}bf16, o, m and l f32, "
+                          f"{visible} of {B * L} positions visible"))
+                log(f"  decode_attention_stats: the same call without statistics "
+                    f"{rows['decode_attention_stats']['nostats_ms']:.5f} ms (profiler)")
+            del q, kt, vt, got, ref
     for kernel, err in worst.items():
         rows[kernel]["max_abs_err"] = err
     torch.cuda.empty_cache()
@@ -1553,7 +1635,7 @@ def _trainer_classes():
 
         def _build(self, devices):
             super()._build(devices)
-            inner = self.step_fn
+            inner = self.raw_step_fn = self.step_fn
 
             def timed(state, batch):
                 torch.cuda.synchronize()
@@ -3304,11 +3386,13 @@ MESH_DECODE = dict(num_layers=1)  # mixtral-8x22b, 1 of 56 layers, every expert
 MESH_DECODE_B, MESH_DECODE_L, MESH_DECODE_POS = 8, 4096, 4000
 
 
-def _mesh_train_run(dev, seed, cfg, mesh):
+def _mesh_train_run(dev, seed, cfg, ranks=None, model_par=1, extra=False):
     """TRAIN_STEPS steps of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ through
-    ``ElasticTrainer``: on one card (``mesh`` None, no process group) or
-    on the mesh's ranks. No checkpoint is written. Returns (losses, step
-    ms, peak bytes, launches, backward calls, plain calls)."""
+    ``ElasticTrainer``: on one card (``ranks`` None, no process group) or
+    on a (len(ranks) / model_par, model_par) mesh of those ranks. No
+    checkpoint is written. Returns (losses, step ms, peak bytes, launches,
+    backward calls, plain calls, and with ``extra`` the ``_extra_step``
+    measurements of two more steps)."""
     import torch
 
     from repro_torch.data import SyntheticBatches
@@ -3324,9 +3408,10 @@ def _mesh_train_run(dev, seed, cfg, mesh):
     data = SyntheticBatches(cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, seed=seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as ckdir:
         trainer = TimedTrainer(model, opt, data, FewCheckpointer(ckdir, n_writes=0),
-                               devices=[dev] if mesh is None else [0])
-        if (trainer.mesh is None) != (mesh is None):
-            raise AssertionError(f"trainer mesh {trainer.mesh}, expected {mesh}")
+                               devices=[dev] if ranks is None else ranks,
+                               model_par=model_par)
+        if (trainer.mesh is None) != (ranks is None):
+            raise AssertionError(f"trainer mesh {trainer.mesh}, ranks {ranks}")
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         state = trainer.run(TRAIN_STEPS, seed=seed, checkpoint_every=0)
@@ -3334,26 +3419,81 @@ def _mesh_train_run(dev, seed, cfg, mesh):
         out = ([h[1] for h in trainer.history], list(trainer.step_ms),
                torch.cuda.max_memory_allocated(dev), dict(LAUNCHES), dict(BWD_CALLS),
                dict(PLAIN_CALLS))
+        if extra:
+            out += (_extra_step(trainer, state, data.batch(TRAIN_STEPS)),)
     del state, trainer, opt
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def _mesh_decode(dev, seed, cfg, mesh):
-    """One ``decode_step`` of MESH_DECODE_B rows at position MESH_DECODE_POS
-    against a MESH_DECODE_L-slot dense cache holding seeded keys and values
-    at positions 0..MESH_DECODE_POS-1; on one card, or under ``decode_ws``
-    on ``mesh``. Returns (f32 logits, launches, plain calls)."""
+def _nccl_ms(prof, n=1):
+    """Device ms per call of each NCCL kernel in a torch.profiler profile
+    of ``n`` calls, by kernel name (cut at its argument list). A kernel's
+    time includes its wait for the other ranks."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.key.startswith("ncclDevKernel"):
+            name = e.key.split("(")[0][:64]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / n / 1e3
+    return out
+
+
+def _extra_step(trainer, state, batch):
+    """Two more steps of a trained ``TimedTrainer`` on ``batch``: the host
+    ms from a synchronised start to the step's return (every kernel and
+    collective enqueued, none waited for) and the step's synchronised ms;
+    then one under torch.profiler: its device busy ms and each NCCL
+    kernel's device ms (empty off a mesh)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.parallel import use_sharding_ctx
+    from repro_torch.parallel.distribute import distribute_tree
+
+    ctx = contextlib.nullcontext()
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    if trainer.mesh is not None:
+        batch = distribute_tree(batch, trainer.batch_shardings)
+        ctx = use_sharding_ctx(trainer.mesh, trainer.rules)
+    with ctx:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.raw_step_fn(state, batch)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        prof = profiled(lambda: trainer.raw_step_fn(state, batch), 1)
+    from torch.autograd import DeviceType
+
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return dict(host_ms=host_ms, step_ms=step_ms, device_busy_ms=busy,
+                nccl_ms=_nccl_ms(prof))
+
+
+def _mesh_decode(dev, seed, cfg, mesh, B=None, L=None, pos=None, layout="decode_ws",
+                 extra=False):
+    """One ``decode_step`` of B rows (default MESH_DECODE_B) at position pos
+    (MESH_DECODE_POS) against an L-slot (MESH_DECODE_L) dense cache holding
+    seeded keys and values at positions 0..pos-1; on one card, or on
+    ``mesh`` under ``layout``'s decode rules (None: the config's). Returns
+    (f32 logits, launches, plain calls, the collectives of the step, and
+    with ``extra`` the NCCL kernels' device ms of one more step under
+    torch.profiler)."""
     import torch
 
     from repro_torch.kernels import LAUNCHES, PLAIN_CALLS, reset_counts
     from repro_torch.models.decoder import DecoderLM
 
+    B = B or MESH_DECODE_B
+    L, pos = L or MESH_DECODE_L, pos or MESH_DECODE_POS
     check_released(dev, "mesh decode")
     model = DecoderLM(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
-    B, L, pos = MESH_DECODE_B, MESH_DECODE_L, MESH_DECODE_POS
     cache = model.init_cache(B, L, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     for entry in cache:
@@ -3362,36 +3502,70 @@ def _mesh_decode(dev, seed, cfg, mesh):
                                                device=dev).to(entry[name].dtype)
         entry["pos"][:, :pos] = torch.arange(pos, dtype=torch.int32, device=dev)
     toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    comms, nccl = {}, None
     with torch.inference_mode():
         if mesh is None:
             reset_counts()
             logits, _ = model.decode_step(params, cache, tokens=toks, pos=pos)
+            counts = (dict(LAUNCHES), dict(PLAIN_CALLS))
         else:
             from torch.distributed.tensor import Replicate, distribute_tensor
+            from torch.distributed.tensor.debug import CommDebugMode
 
             from repro_torch.parallel import use_sharding_ctx
             from repro_torch.parallel.distribute import distribute_tree
             from repro_torch.parallel.layouts import (cache_specs, layout_rules,
                                                       param_specs, to_shardings)
 
-            rules = layout_rules(mesh, cfg, "decode", global_batch=B, layout="decode_ws")
+            rules = layout_rules(mesh, cfg, "decode", global_batch=B, layout=layout)
             dparams = distribute_tree(params, to_shardings(param_specs(params, mesh, rules),
                                                            mesh))
             dcache = distribute_tree(cache, to_shardings(
                 cache_specs(model, mesh, rules, B, L, shapes=cache), mesh))
+            del params, cache
+            params = cache = None
             dtoks = distribute_tensor(toks, mesh, [Replicate()] * mesh.ndim,
                                       src_data_rank=None)
             reset_counts()
-            with use_sharding_ctx(mesh, rules):
+            comm = CommDebugMode()
+            with use_sharding_ctx(mesh, rules), comm:
                 logits, _ = model.decode_step(dparams, dcache, tokens=dtoks, pos=pos)
+            comms = {str(o).split(".")[-1]: int(n) for o, n in comm.get_comm_counts().items()}
             logits = logits.full_tensor()
+            counts = (dict(LAUNCHES), dict(PLAIN_CALLS))
+            if extra:
+                with use_sharding_ctx(mesh, rules):
+                    nccl = _nccl_ms(profiled(lambda: model.decode_step(
+                        dparams, dcache, tokens=dtoks, pos=pos + 1), 1))
             del dparams, dcache
         torch.cuda.synchronize()
-        out = (logits.float(), dict(LAUNCHES), dict(PLAIN_CALLS))
+        out = (logits.float(), *counts, comms)
+        if extra:
+            out += (nccl,)
     del params, cache
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _mesh_train_cfgs():
+    """Phase 13's two training runs of deepseek-coder-33b at MESH_TRAIN
+    depth: its config's ``cp_fsdp`` (one row a microbatch) and the
+    ``configs/optimized.py`` train variant (``fsdp``, flash_vjp)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.optimized import OPTIMIZED
+
+    base = get_config(DEEPSEEK_ARCH).replace(**MESH_TRAIN)
+    return {"cp_fsdp": base.replace(num_microbatches=MESH_TRAIN_BATCH),
+            "optimized": base.replace(**OPTIMIZED[DEEPSEEK_ARCH]["train"])}
+
+
+def _b3_as_stats(counts):
+    """Meshless launch counts with B3's moved to B3 with statistics, which
+    every decode on a mesh takes."""
+    return dict(counts, decode_attention=0,
+                decode_attention_stats=counts.get("decode_attention_stats", 0)
+                + counts.get("decode_attention", 0))
 
 
 def mesh_phase(dev, seed):
@@ -3405,10 +3579,11 @@ def mesh_phase(dev, seed):
     every kernel's launches and backward calls equal, no plain call; step
     ms and peak bytes of each. (b) mixtral-8x22b, 1 of 56 layers with every
     expert, bf16: one ``decode_step`` of 8 rows against a 4096-slot cache
-    under ``decode_ws`` (B3 and the MoE twin of ``_moe_smap``, its ETP
-    branch at tp 1), logits within 3e-5 of the meshless step's (bitwise
-    expected), B3's launches equal. The meshless runs come first, before
-    the process group exists (the trainer trains on one card when there is
+    under ``decode_ws`` (B3 with statistics, whose f32 o rounds to B3's,
+    and the MoE twin of ``_moe_smap``, its ETP branch at tp 1), logits
+    within 3e-5 of the meshless step's (bitwise expected), B3's launches
+    those of the meshless step. The meshless runs come first, before the
+    process group exists (the trainer trains on one card when there is
     none). NCCL failing to initialise, a DTensor reaching a kernel, or a
     kernel failing fails the phase. Returns (the mesh runs' launches,
     summary)."""
@@ -3416,19 +3591,16 @@ def mesh_phase(dev, seed):
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.configs.optimized import OPTIMIZED
     from repro_torch.launch.mesh import make_smoke_mesh
 
     t_phase = time.perf_counter()
     torch.cuda.init()  # the phase may run alone: its first calls read the allocator
-    base = get_config(DEEPSEEK_ARCH).replace(**MESH_TRAIN)
-    runs = {"cp_fsdp": base.replace(num_microbatches=MESH_TRAIN_BATCH),
-            "optimized": base.replace(**OPTIMIZED[DEEPSEEK_ARCH]["train"])}
+    runs = _mesh_train_cfgs()
     dcfg = get_config(MIXTRAL_ARCH).replace(**MESH_DECODE)
     log(f"mesh phase: {DEEPSEEK_ARCH} {MESH_TRAIN} train runs "
         f"{ {k: (c.layout, c.num_microbatches, c.flash_vjp) for k, c in runs.items()} }, "
         f"{MIXTRAL_ARCH} {MESH_DECODE} decode_ws decode")
-    plain = {name: _mesh_train_run(dev, seed, cfg, None) for name, cfg in runs.items()}
+    plain = {name: _mesh_train_run(dev, seed, cfg) for name, cfg in runs.items()}
     plain_decode = _mesh_decode(dev, seed, dcfg, None)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as store_dir:
@@ -3436,10 +3608,10 @@ def mesh_phase(dev, seed):
         dist.init_process_group("nccl", store=dist.FileStore(f"{store_dir}/store", 1),
                                 rank=0, world_size=1, device_id=dev)
         try:
-            mesh = make_smoke_mesh((1, 1), device_type="cuda")
-            meshed = {name: _mesh_train_run(dev, seed, cfg, mesh)
+            meshed = {name: _mesh_train_run(dev, seed, cfg, ranks=[0])
                       for name, cfg in runs.items()}
-            mesh_decode = _mesh_decode(dev, seed, dcfg, mesh)
+            mesh_decode = _mesh_decode(dev, seed, dcfg,
+                                       make_smoke_mesh((1, 1), device_type="cuda"))
         finally:
             dist.destroy_process_group()
 
@@ -3463,14 +3635,14 @@ def mesh_phase(dev, seed):
                                  f"{mbwd} / {pbwd}, plain calls {mplain}")
         for k, n in mcount.items():
             launches[k] = launches.get(k, 0) + n
-    (ml, mcount, mplain), (pl, pcount, _) = mesh_decode, plain_decode
+    (ml, mcount, mplain, _), (pl, pcount, _, _) = mesh_decode, plain_decode
     gap = float((ml - pl).abs().max())
     summary["decode_ws"] = dict(max_abs_logit_gap=gap, bitwise=bool(torch.equal(ml, pl)),
                                 max_abs_logit=float(pl.abs().max()),
                                 launches={k: n for k, n in mcount.items() if n})
     log(f"  mesh decode_ws: {json.dumps(summary['decode_ws'])}")
-    if not (torch.isfinite(ml).all() and gap <= 3e-5) or mcount != pcount \
-            or sum(mplain.values()) or not mcount.get("decode_attention"):
+    if not (torch.isfinite(ml).all() and gap <= 3e-5) or mcount != _b3_as_stats(pcount) \
+            or sum(mplain.values()) or not mcount.get("decode_attention_stats"):
         raise AssertionError(f"mesh decode: gap {gap}, launches {mcount} / {pcount}, "
                              f"plain {mplain}")
     for k, n in mcount.items():
@@ -3484,6 +3656,278 @@ def mesh_phase(dev, seed):
 
 
 # --------------------------------------------------------------------------
+# phase 13 on four NCCL ranks (``--mesh-ranks 4``): the mesh's collectives
+
+MESH4_RANKS = 4
+# the phase on four H100s, build aside: ~150 s measured for (a)-(c) in f32,
+# 62 s for the elastic runs, ~45 s more for bf16; 1.6 times their sum
+MESH4_BUDGET_S = 420.0
+MESH4_SHAPES = ((2, 2), (1, 4))
+# phase 13's training runs on four ranks, in f32 (held at 1e-4) and in the
+# port's bf16. bf16 losses move with any change of reduction order, and
+# AdamW's first update (about lr * sign(g)) carries a flipped sign of a
+# near-zero gradient into the second step's loss. Readings on one H100
+# (700 W): one card's cp_fsdp (2 microbatches) and fsdp (1 microbatch) bf16
+# runs differ by 3.84e-4 at step 2 and 2.44e-4 at step 3, 0 at step 1;
+# cp_fsdp on (2, 2) of four H100s differed from one card by 1.5e-3 at step 2
+# and 4.5e-5 at step 1. The bf16 runs are held at 5e-3: 13 times the
+# one-card reading (which the run logs again as ``witness_gap``), 3.3 times
+# the four-card one, and far under the 4.04 by which a skipped first update
+# would move the second step's loss (10.76 -> 14.80)
+MESH4_TRAIN_DTYPES = {"": (dict(dtype="float32", param_dtype="float32"), 1e-4),
+                      " bf16": (dict(), 5e-3)}
+# deepseek-coder-33b decode in f32, 2 of 62 layers (1.52 B params, 6.1 GB)
+# against a 32,768-slot cache holding keys at 0..31,999, on (2, 2): 8 rows
+# shard ``cache_len`` over "model", 1 row over both axes
+MESH4_DECODE = dict(num_layers=2, dtype="float32", param_dtype="float32")
+MESH4_DECODE_L, MESH4_DECODE_POS, MESH4_DECODE_ROWS = 32768, 32000, (8, 1)
+# mixtral-8x22b decode_ws in f32, 1 of 56 layers (11.6 GB), no dropped
+# assignment (a rank routes its own rows, so capacity must not bind)
+MESH4_MOE = dict(num_layers=1, dtype="float32", param_dtype="float32",
+                 capacity_factor=8.0)
+MESH4_LOGIT_TOL = 3e-5         # the reference's decode_ws bound (atol = rtol)
+ELASTIC_LOSS_TOL = 5e-4        # tests/test_torch_mesh.py's elastic bound
+ELASTIC_DUMP_S = 60            # a rank still in the elastic run then prints its stacks
+
+
+def _mesh4_train_cfgs():
+    """{run name: (config, loss bound)}: phase 13's runs in each of
+    MESH4_TRAIN_DTYPES."""
+    return {name + sfx: (cfg.replace(**kw), tol) for sfx, (kw, tol) in MESH4_TRAIN_DTYPES.items()
+            for name, cfg in _mesh_train_cfgs().items()}
+
+
+def _elastic_ranks(rank, ckpt_dir):
+    """``ElasticTrainer`` 4 -> 2 -> 4 at smoke size: starcoder2-3b's smoke
+    config, 8 x 32 tokens in 2 microbatches, model_par 2; 16 steps with a
+    revocation to 2 ranks at step 8, a resume on 2 to step 18, a cold
+    restore onto 4 to step 20. The weights are the port's seeded init on
+    the host, so gloo and NCCL ranks start alike. A rank still running
+    after ELASTIC_DUMP_S prints every thread's stack. Returns the three
+    trainers' histories (step, loss, ranks) and the first's rescales."""
+    import faulthandler
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant_schedule
+    from repro_torch.parallel.distribute import distribute_tree
+    from repro_torch.runtime.elastic import ElasticTrainer
+
+    cfg = smoke_config(ARCH).replace(num_microbatches=2)
+    model = build_model(cfg)
+
+    class Trainer(ElasticTrainer):
+        def _init_state(self, seed):
+            params = model.init(torch.Generator().manual_seed(seed), device="cpu")
+            return self.opt.init_state(distribute_tree(params,
+                                                       self.state_shardings["params"]))
+
+    opt = AdamW(lr=constant_schedule(3e-3))
+    data = SyntheticBatches(cfg, global_batch=8, seq_len=32, seed=0)
+    ck = Checkpointer(ckpt_dir, keep=2)
+    trainers = []
+    faulthandler.dump_traceback_later(ELASTIC_DUMP_S)
+    for n, steps, kw in ((4, 16, dict(preempt_at={8: 2}, checkpoint_every=5)),
+                         (2, 18, dict(checkpoint_every=0)), (4, 20, dict(checkpoint_every=0))):
+        tr = Trainer(model, opt, data, ck, model_par=2, devices=list(range(n)))
+        tr.run(steps, **kw)
+        trainers.append(tr)
+    faulthandler.cancel_dump_traceback_later()
+    return [tr.history for tr in trainers], trainers[0].rescales
+
+
+def mesh4_rank(rank, seed):
+    """One of ``mesh4_phase``'s NCCL ranks, on card ``rank``: the phase 13
+    training runs on each mesh of MESH4_SHAPES, then the f32 decodes and
+    mixtral's decode_ws step on (2, 2). Returns what it measured; rank 0
+    adds its logits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    dev = torch.device("cuda", rank)
+    ranks = list(range(MESH4_RANKS))
+    out = {"train": {}, "decode": {}}
+    for shape in MESH4_SHAPES:
+        for name, (cfg, _) in _mesh4_train_cfgs().items():
+            t0 = time.perf_counter()
+            out["train"][name, shape] = _mesh_train_run(dev, seed, cfg, ranks, shape[1],
+                                                         extra="bf16" not in name)
+            log(f"  rank {rank}: train {name} on {shape} in {time.perf_counter() - t0:.1f} s")
+    mesh = make_smoke_mesh((2, 2), device_type="cuda")
+    dcfg = get_config(DEEPSEEK_ARCH).replace(**MESH4_DECODE)
+    for B in MESH4_DECODE_ROWS:
+        out["decode"][B] = _mesh_decode(dev, seed, dcfg, mesh, B, MESH4_DECODE_L,
+                                        MESH4_DECODE_POS, layout=None, extra=B == 8)
+    out["moe"] = _mesh_decode(dev, seed, get_config(MIXTRAL_ARCH).replace(**MESH4_MOE),
+                              mesh)
+    # the logits go back as a numpy array (a tensor would cross to the parent
+    # by a handle into this process's memory, which ends with it); one rank's
+    # are enough, as every rank gathers the same
+    for key, run in list(out["decode"].items()) + [("moe", out["moe"])]:
+        slim = (None if rank else run[0].cpu().numpy(),) + run[1:]
+        if key == "moe":
+            out["moe"] = slim
+        else:
+            out["decode"][key] = slim
+    return out
+
+
+def mesh4_phase(seed):
+    """Phase 13 on MESH4_RANKS NCCL ranks, one card each (``--mesh-ranks
+    4``), held to the meshless path on card 0, on the same seed: (a) phase
+    13's two deepseek-coder-33b training runs (2 of 62 layers, TRAIN_STEPS
+    steps of 2 x 4096 tokens, ``cp_fsdp`` and the ``fsdp`` variant), each in
+    f32 and in bf16 (MESH4_TRAIN_DTYPES), on (2, 2) and on (1, 4): losses
+    within their dtype's bound, every kernel's launches and backward calls
+    equal on every rank, no plain call; in f32 also the step ms, peak bytes,
+    the host ms of a step (to its return) and each NCCL kernel's device ms
+    in a profiled step, beside one card's. (b)
+    deepseek-coder-33b in f32 (MESH4_DECODE), one decode step of 8 rows
+    (``cache_len`` over "model") and of 1 row (over both axes) at position
+    MESH4_DECODE_POS of a MESH4_DECODE_L-slot cache, so that every shard
+    holds keys: logits within MESH4_LOGIT_TOL, B3 with statistics on every
+    rank and layer, all-reduces and no plain call; the NCCL kernels of a
+    profiled 8-row step. (c) mixtral-8x22b's decode_ws step, 1 layer, f32
+    (MESH4_MOE), on (2, 2): expert parallelism over the 4 ranks, so
+    ``_moe_smap``'s all_to_all runs; logits within MESH4_LOGIT_TOL. (d)
+    once (a)-(c) are checked and logged, ``_elastic_ranks`` on 4 NCCL ranks
+    of a group of their own and, at the same time, on 4 gloo ranks on the
+    host (after the timed runs, so those share the host with nothing): the
+    same step and rank history, the first three losses within
+    ELASTIC_LOSS_TOL. Raises with fewer than MESH4_RANKS
+    cards, and when the phase takes more than MESH4_BUDGET_S. Returns the
+    summary."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.spawn import Ranks
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < MESH4_RANKS:
+        raise RuntimeError(f"--mesh-ranks {MESH4_RANKS} needs {MESH4_RANKS} cards, "
+                           f"{n_cards} visible")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.init()
+    runs = _mesh4_train_cfgs()
+    dcfg = get_config(DEEPSEEK_ARCH).replace(**MESH4_DECODE)
+    mcfg = get_config(MIXTRAL_ARCH).replace(**MESH4_MOE)
+    log(f"mesh phase on {MESH4_RANKS} NCCL ranks: train {list(runs)} on {MESH4_SHAPES}; "
+        f"{DEEPSEEK_ARCH} {MESH4_DECODE} decode of {MESH4_DECODE_ROWS} rows over "
+        f"{MESH4_DECODE_L} slots; {MIXTRAL_ARCH} {MESH4_MOE} decode_ws; elastic 4 -> 2 -> 4")
+    plain = {name: _mesh_train_run(dev, seed, cfg, extra="bf16" not in name)
+             for name, (cfg, _) in runs.items()}
+    plain_decode = {B: _mesh_decode(dev, seed, dcfg, None, B, MESH4_DECODE_L,
+                                    MESH4_DECODE_POS, layout=None)
+                    for B in MESH4_DECODE_ROWS}
+    plain_moe = _mesh_decode(dev, seed, mcfg, None)
+    t_plain = time.perf_counter() - t_phase
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh4_")
+    for sub in ("gloo", "nccl", "elastic"):  # one FileStore a group
+        pathlib.Path(tmp.name, sub).mkdir()
+    got = Ranks(mesh4_rank, MESH4_RANKS, (seed,), store_dir=f"{tmp.name}/nccl",
+                timeout_s=600, backend="nccl").results(timeout=MESH4_BUDGET_S)
+
+    # the one-card gap of a reduction order changed by microbatching alone,
+    # the witness of the bf16 bound
+    witness = max(abs(a - b) for a, b in zip(plain["cp_fsdp bf16"][0],
+                                             plain["optimized bf16"][0]))
+    summary = {"meshless_s": t_plain, "train": {}, "decode": {}, "witness_gap": witness}
+    log(f"  mesh4 bf16 witness: one card's cp_fsdp vs fsdp losses {witness:.3e} apart")
+    for (name, shape), _ in got[0]["train"].items():
+        pl, pms, ppeak, pcount, pbwd, pplain, *pextra = plain[name]
+        per_rank = [r["train"][name, shape] for r in got]
+        ml, mms, mpeak, mcount, mbwd, mplain, *mextra = per_rank[0]
+        cfg, tol = runs[name]
+        gap = max(abs(a - b) for a, b in zip(ml, pl))
+        row = dict(layout=cfg.layout, dtype=cfg.dtype, mesh=list(shape), losses=ml,
+                   meshless_losses=pl, max_loss_gap=gap, loss_bound=tol, step_ms=mms,
+                   meshless_step_ms=pms, max_memory_allocated=[r[2] for r in per_rank],
+                   meshless_max_memory_allocated=ppeak,
+                   launches={k: n for k, n in mcount.items() if n})
+        if mextra:
+            row.update(extra=mextra[0], meshless_extra=pextra[0],
+                       rank_extra=[r[6] for r in per_rank[1:]])
+        summary["train"][f"{name} {shape[0]}x{shape[1]}"] = row
+        log(f"  mesh4 train {name} {shape}: {json.dumps(row, default=float)}")
+        if not (len(ml) == len(pl) == TRAIN_STEPS and gap <= tol):
+            raise AssertionError(f"mesh4 train {name} {shape}: losses {ml} vs meshless {pl} "
+                                 f"(bound {tol})")
+        for r, run in enumerate(per_rank):
+            if (run[3] != pcount or run[4] != pbwd or sum(run[5].values())
+                    or sum(pplain.values()) or run[0] != ml):
+                raise AssertionError(f"mesh4 train {name} {shape} rank {r}: launches "
+                                     f"{run[3]} / {pcount}, backward {run[4]} / {pbwd}, "
+                                     f"plain {run[5]}, losses {run[0]} / {ml}")
+    n_attn = sum(s.mixer == "attn" for s in _layer_specs(dcfg))
+    for key, ref, cfg in [(B, plain_decode[B], dcfg) for B in MESH4_DECODE_ROWS] + [
+            ("moe", plain_moe, mcfg)]:
+        per_rank = [r["decode"][key] if key != "moe" else r["moe"] for r in got]
+        err = _check(f"mesh4 decode {key} logits vs one card",
+                     torch.from_numpy(per_rank[0][0]), ref[0].cpu(), MESH4_LOGIT_TOL)
+        row = dict(max_abs_logit_gap=err, max_abs_logit=float(ref[0].abs().max()),
+                   collectives=[r[3] for r in per_rank],
+                   launches=[{k: n for k, n in r[1].items() if n} for r in per_rank])
+        if key == 8:
+            row["nccl_ms"] = [r[4] for r in per_rank]
+        summary["decode"][str(key)] = row
+        log(f"  mesh4 decode {key}: {json.dumps(row, default=float)}")
+        want_stats = n_attn if key != "moe" else sum(s.mixer == "attn"
+                                                     for s in _layer_specs(cfg))
+        collective = "all_to_all_single" if key == "moe" else "all_reduce"
+        for r, run in enumerate(per_rank):
+            if (run[1].get("decode_attention_stats") != want_stats
+                    or run[1].get("decode_attention") or sum(run[2].values())
+                    or not run[3].get(collective)):
+                raise AssertionError(f"mesh4 decode {key} rank {r}: launches {run[1]}, "
+                                     f"plain {run[2]}, collectives {run[3]}")
+    # the elastic run in a group of its own, after the measurements above
+    # are logged, with a short collective timeout: a rank that waits on one
+    # the others never join fails the run in a minute and a half, and
+    # prints its stacks before
+    t0 = time.perf_counter()
+    with tmp:
+        gloo = Ranks(_elastic_ranks, MESH4_RANKS, (f"{tmp.name}/gloo_ck",),
+                     store_dir=f"{tmp.name}/gloo", timeout_s=600, backend="gloo")
+        hist, rescales = Ranks(_elastic_ranks, MESH4_RANKS, (f"{tmp.name}/nccl_ck",),
+                               store_dir=f"{tmp.name}/elastic", timeout_s=90,
+                               backend="nccl").results(timeout=120)[0]
+        t_nccl = time.perf_counter() - t0
+        ghist, grescales = gloo.results(timeout=240)[0]
+    summary["elastic"] = dict(history=hist, gloo_history=ghist, rescales=rescales,
+                              nccl_s=t_nccl, seconds=time.perf_counter() - t0)
+    log(f"  mesh4 elastic: {json.dumps(summary['elastic'])}")
+    steps = [[(s, d) for s, _, d in h] for h in hist]
+    if (steps != [[(s, d) for s, _, d in h] for h in ghist] or (rescales, grescales) != (1, 1)
+            or steps != [[(s, 4 if s < 8 else 2) for s in range(16)],
+                         [(16, 2), (17, 2)], [(18, 4), (19, 4)]]
+            or not all(math.isfinite(v) for h in hist for _, v, _ in h)
+            or max(abs(a[1] - b[1]) for a, b in zip(hist[0][:3], ghist[0][:3]))
+            > ELASTIC_LOSS_TOL):
+        raise AssertionError(f"mesh4 elastic: NCCL {hist} ({rescales} rescales) vs gloo "
+                             f"{ghist} ({grescales})")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh4 phase: {summary['phase_s']:.1f} s")
+    if summary["phase_s"] > MESH4_BUDGET_S:
+        raise AssertionError(f"mesh4 phase took {summary['phase_s']:.1f} s > "
+                             f"{MESH4_BUDGET_S} s")
+    return summary
+
+
+def _layer_specs(cfg):
+    from repro_torch.models.decoder import DecoderLM
+
+    return DecoderLM(cfg).layer_specs
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -3493,6 +3937,9 @@ def main(argv=None):
                     help="build the kernels, then run only the jamba f32 gradient phase "
                          "once per SEED, with each mixer leaf's distance from an f64 path "
                          "under five mixes of kernels and plain versions; no smoke result")
+    ap.add_argument("--mesh-ranks", type=int, choices=(MESH4_RANKS,),
+                    help="build the kernels, then run only the mesh phase, on this many "
+                         "NCCL ranks, one card each (raises with fewer cards)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3529,6 +3976,16 @@ def main(argv=None):
         for seed in args.jamba_grad_study:
             jamba_grad_phase(dev, seed, study=True)
         log(f"jamba gradient study done: {smi}; total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.mesh_ranks:
+        mesh4 = mesh4_phase(args.seed)
+        log(f"mesh on {MESH4_RANKS} NCCL ranks held to one card in "
+            f"{mesh4['phase_s']:.1f} s; total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"mesh4": {**mesh4, "card": smi}}, default=float))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
 
     rows = kernel_phase(dev)
@@ -3594,6 +4051,10 @@ def main(argv=None):
                                   "src/repro/models/attention.py:70 _chunked_attention)"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:91"),
+        "decode_attention_stats": ("src/repro_torch/csrc/decode_attention.cu",
+                                   "src/repro/kernels/decode_attention/kernel.py:91 (B3; "
+                                   "with the row statistics that the reference's sharded "
+                                   "decode merges, src/repro/parallel/layouts.py:17)"),
         "paged_decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                    "src/repro/kernels/decode_attention/kernel.py:175"),
         "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",

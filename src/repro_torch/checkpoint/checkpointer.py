@@ -184,11 +184,12 @@ def _writes(mesh) -> bool:
 
 def _in_step(mesh) -> None:
     """Return on every rank of ``mesh`` only once all have arrived (an
-    all-reduce over every mesh dim)."""
+    all-reduce over every mesh dim, read back on the host: on NCCL the
+    all-reduce alone returns before the others arrive)."""
     from torch.distributed.tensor import DTensor, Partial
 
     z = torch.zeros(1, device=mesh.device_type)
-    DTensor.from_local(z, mesh, [Partial()] * mesh.ndim, run_check=False).full_tensor()
+    DTensor.from_local(z, mesh, [Partial()] * mesh.ndim, run_check=False).full_tensor().item()
 
 
 def _any_mesh(shardings):

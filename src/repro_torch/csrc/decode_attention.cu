@@ -36,6 +36,10 @@
 //   (decode_kernel_combine), launched by the same entry, merges each head's
 //   n_split partials in split order and writes o. No float atomics: two
 //   runs are bitwise equal.
+// * Statistics. On request the combine also writes each row's softmax max m
+//   and denominator l (B, H) f32, and o in f32: a decode over a cache whose
+//   length is sharded across ranks merges the ranks' (o, m, l)
+//   (models/attention.py, _mesh_attention), as the combine merges splits.
 //
 // Semantics kept from the reference kernels: q scaled by hd**-0.5; optional
 // softcap; the mask is an additive f32 bias (finite NEG_INF, so a row whose
@@ -76,6 +80,8 @@ struct DecodeParams {
   int32_t paged, n_split, split_len;
   float scale, softcap;
   int32_t q_dtype, kv_dtype;
+  float* m;                // (B, H) f32 row max after softcap and bias, or null
+  float* l;                // (B, H) f32 sum of exp(s - m); with m, o is f32
 };
 
 constexpr int CH = 64;          // keys per chunk
@@ -483,7 +489,10 @@ __global__ void __launch_bounds__(NTHREAD) decode_kernel(const DecodeParams p) {
 
 // Merge each head's n_split partials in split order and write o: the max
 // over the splits, each split's weight exp(m_i - max) in shared memory, then
-// one output column a thread.
+// one output column a thread. With statistics (p.m set) o is written in f32,
+// so that a merge of several shards' results rounds to q's dtype once, and
+// the row's merged max and denominator go to p.m and p.l; rounded to TQ, that
+// o is the o of the launch without them.
 template <typename TQ, int HD>
 __global__ void __launch_bounds__(HD) decode_kernel_combine(const DecodeParams p) {
   extern __shared__ float w_s[];  // n_split weights, then n_split weighted denominators
@@ -513,8 +522,16 @@ __global__ void __launch_bounds__(HD) decode_kernel_combine(const DecodeParams p
     o += p.part[(row0 + i) * HD + d] * w_s[i];
     l += w_s[n + i];
   }
-  TQ* out = static_cast<TQ*>(p.o);
-  out[b * p.o_sb + h * p.o_sh + d] = from_float<TQ>(o / fmaxf(l, 1e-37f));
+  const float res = o / fmaxf(l, 1e-37f);
+  if (p.m != nullptr) {
+    static_cast<float*>(p.o)[b * p.o_sb + h * p.o_sh + d] = res;
+    if (d == 0) {
+      p.m[bh] = m;
+      p.l[bh] = l;
+    }
+  } else {
+    static_cast<TQ*>(p.o)[b * p.o_sb + h * p.o_sh + d] = from_float<TQ>(res);
+  }
 }
 
 template <typename TQ, typename TKV, int HD>

@@ -26,14 +26,17 @@ backward recomputes through its oracle (``flash_attention_bwd``), or, under
 ``cfg.flash_vjp``, chunk by chunk from the forward's softmax statistics
 (``flash_attention_bwd_chunked``). ``flash_attention_stats`` is B2 launched
 with those statistics as extra outputs (its plain version the chunked
-online softmax).
+online softmax), ``decode_attention_stats`` B3 launched with its rows'
+(m, l) beside an f32 output, which a decode over a sharded cache merges
+across ranks.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-KERNEL_NAMES = ("flash_attention", "flash_attention_stats", "decode_attention", "paged_decode_attention",
+KERNEL_NAMES = ("flash_attention", "flash_attention_stats", "decode_attention",
+                "decode_attention_stats", "paged_decode_attention",
                 "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan", "ssm_scan_bwd",
                 "serving_fleet")
 

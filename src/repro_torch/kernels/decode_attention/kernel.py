@@ -9,6 +9,10 @@ bitwise-identical results on the same cache contents. The routine splits
 each sequence's keys across CTAs and merges the per-split partials in a
 second kernel; ``split_plan`` picks the split from the shapes and the SM
 count alone, never from the layout.
+
+With ``stats=True`` the dense wrapper also returns each row's softmax
+statistics (m, l) and its output in f32, for a merge of several shards of
+one cache; such a launch counts as ``decode_attention_stats``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ class DecodeParams(ctypes.Structure):
         ("paged", _I32), ("n_split", _I32), ("split_len", _I32),
         ("scale", ctypes.c_float), ("softcap", ctypes.c_float),
         ("q_dtype", _I32), ("kv_dtype", _I32),
+        ("m", _P), ("l", _P),
     ]
 
 
@@ -148,10 +153,13 @@ def paged_params(q, k_pages, v_pages, page_table, bias, k_scale=None,
         _build.dtype_code(q), _build.dtype_code(k_pages))
 
 
-def decode_attention_fwd(q, k, v, bias, *, softcap=0.0):
+def decode_attention_fwd(q, k, v, bias, *, softcap=0.0, stats=False):
     """q: (B,H,hd); k,v: (B,KV,L,hd) of q's dtype, any strides with a unit
     last stride (the model passes a transposed view of its (B,L,KV,hd)
-    cache); bias: (L,) or (B,L) f32. Returns (B,H,hd)."""
+    cache); bias: (L,) or (B,L) f32. Returns (B,H,hd); with ``stats``
+    (o, m, l): o (B,H,hd) in f32 (rounded to q's dtype, the o of the launch
+    without statistics), m each row's largest score after softcap and bias
+    and l the sum of exp(score - m), both (B,H) f32."""
     refuse_dtensor("decode_attention_fwd", q, k, v, bias)
     B, H, hd = q.shape
     KV, L = k.shape[1], k.shape[2]
@@ -162,11 +170,17 @@ def decode_attention_fwd(q, k, v, bias, *, softcap=0.0):
         raise ValueError(f"cache shapes {tuple(k.shape)} {tuple(v.shape)}")
     if bias.shape not in ((L,), (B, L)) or bias.stride(-1) != 1:
         raise ValueError(f"bias shape {tuple(bias.shape)}; need ({L},) or ({B},{L})")
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, hd), dtype=torch.float32 if stats else q.dtype,
+                      device=q.device)
     prm = dense_params(q, k, v, bias, softcap)
     prm.o = out.data_ptr()
-    _launch(prm, q.device, "decode_attention")
-    return out
+    if not stats:
+        _launch(prm, q.device, "decode_attention")
+        return out
+    m, l = torch.empty((2, B, H), dtype=torch.float32, device=q.device)
+    prm.m, prm.l = m.data_ptr(), l.data_ptr()
+    _launch(prm, q.device, "decode_attention_stats")
+    return out, m, l
 
 
 def paged_decode_attention_fwd(q, k_pages, v_pages, page_table, bias, *,

@@ -10,14 +10,15 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 
 
-def decode_attention(q, k, v, bias, *, softcap=0.0):
+def decode_attention(q, k, v, bias, *, softcap=0.0, stats=False):
     """q: (B,H,hd); k,v: (B,KV,L,hd); bias: (L,) shared or (B,L) per
-    sequence, f32 additive. Returns (B,H,hd)."""
+    sequence, f32 additive. Returns (B,H,hd); with ``stats`` (o in f32, m,
+    l), each row's softmax statistics (B,H) f32 beside it."""
     refuse_dtensor("decode_attention", q, k, v, bias)
     if q.is_cuda:
-        return decode_attention_fwd(q, k, v, bias, softcap=softcap)
+        return decode_attention_fwd(q, k, v, bias, softcap=softcap, stats=stats)
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, bias, softcap=softcap)
+        return decode_attention_ref(q, k, v, bias, softcap=softcap, stats=stats)
     raise ValueError(f"decode_attention: unsupported device {q.device}")
 
 

@@ -18,8 +18,11 @@ def _bias_rows(bias):
     return bias[None, None, None, :] if bias.dim() == 1 else bias[:, None, None, :]
 
 
-def decode_attention_ref(q, k, v, bias, *, softcap=0.0):
-    PLAIN_CALLS["decode_attention"] += 1
+def decode_attention_ref(q, k, v, bias, *, softcap=0.0, stats=False):
+    """Returns (B,H,hd) in q's dtype; with ``stats`` (o, m, l): o in f32
+    (rounded to q's dtype, the o without statistics), m the row max of the
+    scores after softcap and bias, l = sum exp(s - m), both (B,H) f32."""
+    PLAIN_CALLS["decode_attention_stats" if stats else "decode_attention"] += 1
     B, H, hd = q.shape
     KV = k.shape[1]
     G = H // KV
@@ -31,7 +34,22 @@ def decode_attention_ref(q, k, v, bias, *, softcap=0.0):
     s = s + _bias_rows(bias)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgl,bklh->bkgh", p.to(v.dtype).float(), v.float())
-    return o.reshape(B, H, hd).to(q.dtype)
+    o = o.reshape(B, H, hd)
+    if not stats:
+        return o.to(q.dtype)
+    m = s.amax(-1, keepdim=True)
+    return o, m.reshape(B, H), torch.exp(s - m).sum(-1).reshape(B, H)
+
+
+def merge_stats(o, m, l):
+    """Merge the (o, m, l) of shards of one cache, stacked on a leading
+    shard axis, as the mesh decode merges its ranks' (an all-reduce max of
+    m, then an all-reduce sum of o*l*e^(m-M) and l*e^(m-M)): a shard whose
+    every key is masked has m near NEG_INF and weight 0 unless every shard
+    is masked, and then the merge averages V as the unsplit row does.
+    o: (n,B,H,hd) f32; m, l: (n,B,H). Returns (B,H,hd) f32."""
+    w = l * torch.exp(m - m.amax(0))
+    return (o * w[..., None]).sum(0) / w.sum(0).clamp_min(1e-37)[..., None]
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table, bias, *,

@@ -19,13 +19,12 @@ cache positions per sequence where the reference keeps one row.
 
 A decode cell also writes ``decode_kv_bytes_per_device``, the attention
 layers' K and V bytes one rank holds under the cache specs, and
-``decode_kv_bytes_per_device_gathered``, the same sum with each layer's
-``cache_len`` gathered whole, as a decode step gathers it layer by layer
-(``models.attention._mesh_attention`` attends over the whole key sequence
-of its rows: a known gap, since the decode kernel returns no softmax
-statistics that per-shard results could be combined with). Their
-difference is what each rank receives per decode step through those
-all-gathers.
+``decode_kv_bytes_per_device_gathered``, the K and V bytes a rank holds
+while a decode step attends. The two are equal: the step attends each
+rank's own slots and merges the ranks' softmax statistics with
+all-reduces of (batch, heads) and (batch, heads, head_dim + 1) f32 values
+a layer (``models.attention._mesh_attention``), so no layer's cache is
+gathered.
 
 ``--trace`` also runs the cell's step once, on meta DTensors laid out by the
 cell's rules, and records ``flops_per_device`` (``torch.utils.flop_counter.
@@ -92,19 +91,14 @@ def _bytes_per_device(struct_tree, spec_tree, mesh) -> float:
     return total
 
 
-def _kv_bytes_per_device(cstruct, cspec, mesh, *, gathered: bool) -> float:
-    """K and V bytes of the attention layers' caches on one rank, with
-    ``cache_len`` (dim 1) as the specs lay it out or ``gathered``."""
-    from repro_torch.parallel.sharding import P
-
+def _kv_bytes_per_device(cstruct, cspec, mesh) -> float:
+    """K and V bytes of the attention layers' caches on one rank."""
     total = 0.0
     for struct, spec in zip(cstruct, cspec):
         if "k" not in spec:  # RWKV and Mamba state
             continue
         for name in ("k", "v"):
-            sp = spec[name]
-            total += _bytes_per_device(struct[name], P(sp[0], None, *sp[2:]) if gathered
-                                       else sp, mesh)
+            total += _bytes_per_device(struct[name], spec[name], mesh)
     return total
 
 
@@ -172,9 +166,8 @@ def build_cell(arch: str, shape_name: str, mesh, *, layout=None, overrides=None,
         lspec = cache_specs(model, mesh, rules, B, S, shapes=live)
         meta["state_bytes_per_device_live"] = pbytes + _bytes_per_device(live, lspec, mesh)
         meta["tokens_per_step"] = B
-        for key, gathered in (("decode_kv_bytes_per_device", False),
-                              ("decode_kv_bytes_per_device_gathered", True)):
-            meta[key] = _kv_bytes_per_device(cstruct, cspec, mesh, gathered=gathered)
+        meta["decode_kv_bytes_per_device"] = _kv_bytes_per_device(cstruct, cspec, mesh)
+        meta["decode_kv_bytes_per_device_gathered"] = meta["decode_kv_bytes_per_device"]
     # the batch's specs are checked to lay out on the mesh
     bstruct = batch_struct(cfg, shape.kind, B, S)
     fix_divisibility(batch_partition(cfg, shape.kind, rules), bstruct, mesh)

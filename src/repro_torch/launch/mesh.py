@@ -30,7 +30,6 @@ def production_shape(*, multi_pod: bool = False) -> MeshShape:
 
 def _device_mesh(device_type: str, shape, axes):
     import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
 
     n = math.prod(shape)
     if not dist.is_initialized():
@@ -41,8 +40,9 @@ def _device_mesh(device_type: str, shape, axes):
         raise RuntimeError(f"need {n} ranks, have {world}")
     import torch
 
-    ranks = torch.arange(n).reshape(tuple(shape))
-    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axes))
+    from repro_torch.parallel.groups import mesh_over
+
+    return mesh_over(device_type, torch.arange(n).reshape(tuple(shape)), axes)
 
 
 def make_production_mesh(*, multi_pod: bool = False):

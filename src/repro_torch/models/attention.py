@@ -40,7 +40,8 @@ from repro_torch.models.common import (NEG_INF, allow_mask, apply_rope,
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.optim.compress import dequantize_int8, quantize_int8
 from repro_torch.parallel import is_dtensor, logical, logical_placements, split_last
-from repro_torch.parallel.local import local_call, local_offset, partial_where_split
+from repro_torch.parallel.local import (dense, local_call, local_offset,
+                                       partial_where_split)
 
 
 # ---------------------------------------------------------------------------
@@ -64,9 +65,10 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device):
 # plain attention math (grouped GQA form) — the reference's jnp path
 
 
-def _softmax_attention(qg, k, v, ok, cap, scale):
+def _softmax_attention(qg, k, v, ok, cap, scale, stats=False):
     """qg: (B,Sq,KV,G,hd); k,v: (B,Sk,KV,hd); ok broadcastable to
-    (B,KV,G,Sq,Sk). Returns (B,Sq,KV,G,hd)."""
+    (B,KV,G,Sq,Sk). Returns (B,Sq,KV,G,hd); with ``stats`` (out in f32, m,
+    l): each row's largest logit and sum of exp(logit - m), (B,KV,G,Sq)."""
     PLAIN_CALLS["model_attention"] += 1
     logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
     if cap:
@@ -74,7 +76,10 @@ def _softmax_attention(qg, k, v, ok, cap, scale):
     logits = logits.masked_fill(~ok, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype).float(), v.float())
-    return out.to(v.dtype)
+    if not stats:
+        return out.to(v.dtype)
+    m = logits.amax(-1, keepdim=True)
+    return out, m[..., 0], torch.exp(logits - m).sum(-1)
 
 
 def _direct_attention(q, k, v, q_pos, k_pos, *, window, prefix_len, cap, scale):
@@ -85,16 +90,17 @@ def _direct_attention(q, k, v, q_pos, k_pos, *, window, prefix_len, cap, scale):
 
 
 def _paged_attention_torch(qg, k, v, q_pos, k_pos, *, window, prefix_len, cap,
-                           scale):
+                           scale, stats=False):
     """Batched-positions twin of ``_direct_attention`` (the reference's
     ``_paged_attention_jnp``): q_pos (B,Sq), k_pos (B,Sk), one mask row per
     sequence. Dense and paged plain decode both run through it."""
     ok = allow_mask(q_pos, k_pos, window=window, prefix_len=prefix_len)  # (B,Sq,Sk)
-    return _softmax_attention(qg, k, v, ok[:, None, None], cap, scale)
+    return _softmax_attention(qg, k, v, ok[:, None, None], cap, scale, stats)
 
 
 def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
-                      plain: bool = False, train: bool = False, q_offset: int = 0):
+                      plain: bool = False, train: bool = False, q_offset: int = 0,
+                      stats: bool = False):
     """q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd). Positions are 1-D (shared by the
     batch; prefill and training self-attention over 0..S-1) or (B, S) per
     sequence (decode). Dispatch: ``plain`` -> the model-level plain math
@@ -108,7 +114,9 @@ def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
 
     On DTensors (a mesh) the op runs on local shards (``_mesh_attention``);
     ``q_offset`` is then the global index of the local q chunk's first
-    position, which the masks of prefill and training count from."""
+    position, which the masks of prefill and training count from. A decode
+    call with ``stats`` returns (o (B,1,H,hd) in f32, m, l (B,H)), each
+    row's softmax statistics over the keys it was given."""
     if is_dtensor(q):
         return _mesh_attention(q, k, v, q_pos, k_pos, cfg, spec, plain, train)
     B, Sq, H, hd = q.shape
@@ -122,13 +130,17 @@ def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
         if q_pos.dim() == 1:
             return _direct_attention(qg, k, v, q_pos[q_offset:q_offset + Sq], k_pos,
                                      **kw).reshape(B, Sq, H, hd)
-        return _paged_attention_torch(qg, k, v, q_pos, k_pos, **kw).reshape(B, Sq, H, hd)
+        out = _paged_attention_torch(qg, k, v, q_pos, k_pos, **kw, stats=stats)
+        if stats:
+            o, m, l = out
+            return o.reshape(B, Sq, H, hd), m.reshape(B, H), l.reshape(B, H)
+        return out.reshape(B, Sq, H, hd)
     if Sq == 1 and not train:  # decode against a cache
         ok = allow_mask(q_pos, k_pos, window=window, prefix_len=cfg.prefix_len)
         bias = mask_bias(ok)[..., 0, :]  # (L,) or (B,L)
-        o = decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
-                             bias, softcap=cfg.attn_softcap)
-        return o[:, None]
+        out = decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                               bias, softcap=cfg.attn_softcap, stats=stats)
+        return (out[0][:, None],) + out[1:] if stats else out[:, None]
     if q_pos.dim() != 1 or q_offset + Sq > k.shape[1]:
         raise ValueError("prefill and training attention take self-attention "
                          "over positions 0..S-1")
@@ -146,24 +158,34 @@ def grouped_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig, spec: LayerSpec,
 def _mesh_attention(q, k, v, q_pos, k_pos, cfg, spec, plain, train):
     """``grouped_attention`` on DTensors: each rank attends its local q
     (its batch rows, its sequence chunk under ``cp_fsdp``, its heads under
-    ``tp``) against the whole key sequence of its rows, gathered where the
-    layout shards it (a decode cache's ``cache_len``), and the key heads
-    its q heads read. The output is laid out as q."""
+    ``tp``) against the key heads its q heads read. Training and prefill
+    gather the whole key sequence of its rows. Decode keeps the cache as it
+    is laid out and takes the decode op with softmax statistics (its f32 o
+    rounds to the o without them): where ``cache_len`` is split over mesh
+    dims, each rank attends its own slots and the ranks' statistics are
+    merged over those dims (``_merge_shards``), as the reference's XLA does
+    with its max/sum all-reduces. The output is laid out as q."""
     mesh = q.device_mesh
+    decode = q_pos.dim() != 1
     qpl = logical_placements(q, "batch", "act_seq" if q.shape[1] > 1 else None,
                              "heads", None)
-    kvpl = logical_placements(k, "batch", None, "kv_heads", None)
+    kvpl = logical_placements(k, "batch", "cache_len" if decode else None, "kv_heads",
+                              None)
     H, KV = q.shape[2], k.shape[2]
     G = H // KV
     q_off = local_offset(q.shape, mesh, qpl, 1)
     h_off = local_offset(q.shape, mesh, qpl, 2)
     kv_off = local_offset(k.shape, mesh, kvpl, 2)
-    decode = q_pos.dim() != 1
     if decode:
-        pos_pl = logical_placements(k_pos, "batch", None)
+        pos_pl = logical_placements(k_pos, "batch", "cache_len")
         qp_pl = logical_placements(q_pos, "batch", None)
     else:
         pos_pl = qp_pl = None
+    split = [i for i, p in enumerate(kvpl) if getattr(p, "dim", None) == 1]
+    # the merged o is the same on every rank of those dims, as qpl must say
+    if any(getattr(qpl[i], "dim", None) is not None for i in split):
+        raise ValueError(f"q {qpl} is sharded over a mesh dim that splits the "
+                         f"cache {kvpl}")
 
     def attend(ql, kl, vl, qp, kp):
         Hl = ql.shape[2]
@@ -173,14 +195,38 @@ def _mesh_attention(q, k, v, q_pos, k_pos, cfg, spec, plain, train):
         if k1 - k0 != 1 and not ((k1 - k0) * G == Hl and h_off % G == 0):
             raise ValueError(f"local heads {h_off}..{h_off + Hl} do not group over "
                              f"key heads {k0 + kv_off}..{k1 + kv_off}")
-        return grouped_attention(ql, kl, vl, qp, kp, cfg, spec, plain, train,
-                                 q_offset=0 if decode else q_off)
+        out = grouped_attention(ql, kl, vl, qp, kp, cfg, spec, plain, train,
+                                q_offset=0 if decode else q_off, stats=decode)
+        if not decode:
+            return out
+        o, m, l = out
+        return (_merge_shards(o, m, l, mesh, split) if split else o).to(ql.dtype)
 
     kv_grad = partial_where_split(kvpl, [qpl])
     (o,) = local_call(attend, (q, k, v, q_pos, k_pos),
                       (qpl, kvpl, kvpl, qp_pl, pos_pl), (qpl,), mesh,
                       grad_placements=(None, kv_grad, kv_grad, None, None))
     return o
+
+
+def _merge_shards(o, m, l, mesh, dims):
+    """One decode's (o (B,1,H,hd) f32, m, l (B,H)) on each rank of the mesh
+    dims ``dims``, each over its own slots of the cache, merged into the
+    attention over all of them: an all-reduce max of m, then one all-reduce
+    sum of o*w and w, w = l*e^(m-max) (0 on a rank whose every slot is
+    masked, unless all are: then the merge averages V, as the reference
+    does), and their quotient, the denominator floored at 1e-37
+    (``kernels.decode_attention.ref.merge_stats`` on stacked shards)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    def all_reduce(x, op):
+        pl = [Partial(op) if i in dims else Replicate() for i in range(mesh.ndim)]
+        return DTensor.from_local(x, mesh, pl, run_check=False).redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local()
+
+    w = l * torch.exp(m - all_reduce(m, "max"))
+    s = all_reduce(torch.cat([o[:, 0] * w[..., None], w[..., None]], -1), "sum")
+    return (s[..., :-1] / s[..., -1:].clamp_min(1e-37))[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -190,9 +236,9 @@ def _mesh_attention(q, k, v, q_pos, k_pos, cfg, spec, plain, train):
 def _project(p, x, cfg: ModelConfig):
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = dense(x, p["wq"])
+    k = dense(x, p["wk"])
+    v = dense(x, p["wv"])
     if cfg.use_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (split_last(q, (H, hd), "batch", "act_seq", "heads", None),
@@ -202,7 +248,7 @@ def _project(p, x, cfg: ModelConfig):
 
 def _out(p, o, cfg: ModelConfig):
     B, S = o.shape[:2]
-    y = o.reshape(B, S, -1) @ p["wo"]
+    y = dense(o.reshape(B, S, -1), p["wo"])
     if cfg.use_bias:
         y = y + p["bo"]
     return y

@@ -67,7 +67,7 @@ from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        init_norm, softcap)
 from repro_torch.models.config import ModelConfig, block_structure
 from repro_torch.parallel import is_dtensor, logical, sharding_ctx, use_sharding_ctx
-from repro_torch.parallel.local import mesh_ops
+from repro_torch.parallel.local import dense, local_call, mesh_ops, partial_where_split
 from repro_torch.tree import leaves
 
 
@@ -311,7 +311,7 @@ class DecoderLM:
         cfg = self.cfg
         dt = self.dtype
         if cfg.embed_inputs:
-            x = Fn.embedding(tokens.long(), _replicated(params["embed"])).to(dt)
+            x = _embed(tokens, params["embed"]).to(dt)
         else:
             x = embeds.to(dt)
         if prefix_embeds is not None:
@@ -326,9 +326,9 @@ class DecoderLM:
         cfg = self.cfg
         x = apply_norm(params["final_norm"], x, cfg)
         if cfg.tie_embeddings and cfg.embed_inputs:
-            logits = x @ params["embed"].to(x.dtype).T
+            logits = dense(x, params["embed"].to(x.dtype).T)
         else:
-            logits = x @ params["lm_head"].to(x.dtype)
+            logits = dense(x, params["lm_head"].to(x.dtype))
         logits = softcap(logits, cfg.final_softcap)
         return logical(logits, "batch", "act_seq", "vocab")
 
@@ -525,15 +525,26 @@ def _whole(t):
     return t.full_tensor() if is_dtensor(t) else t
 
 
-def _replicated(t):
-    """A DTensor table gathered whole on every rank (a lookup into a
-    vocab-sharded table is a masked partial sum that DTensor cannot reduce
-    when the tokens are split too); a plain tensor as it is."""
-    if not is_dtensor(t):
-        return t
+def _embed(tokens, table):
+    """``Fn.embedding`` of ``tokens`` (B,S) into ``table`` (V,d). On a mesh
+    each rank looks its own tokens up in the whole table, gathered on every
+    rank (a lookup into a vocab-sharded table is a masked partial sum that
+    DTensor cannot reduce when the tokens are split too), through
+    ``local_call``: the output is laid out as the tokens, and the table's
+    gradient is a partial sum over the ranks that split them, reduced where
+    the table is laid out again, as ``parallel.local.dense`` lays out a
+    linear layer rather than leave it to DTensor's strategies."""
+    if not (is_dtensor(tokens) or is_dtensor(table)):
+        return Fn.embedding(tokens.long(), table)
     from torch.distributed.tensor import Replicate
 
-    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    mesh = (tokens if is_dtensor(tokens) else table).device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    tpl = tuple(tokens.placements) if is_dtensor(tokens) else rep
+    (x,) = local_call(lambda t, w: Fn.embedding(t.long(), w), (tokens, table),
+                      (tpl, rep), (tpl,), mesh,
+                      grad_placements=(None, partial_where_split(rep, [tpl])))
+    return x
 
 
 def _first(*xs):

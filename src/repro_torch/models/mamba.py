@@ -30,7 +30,7 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.models.common import dense_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import is_dtensor, logical, logical_placements
-from repro_torch.parallel.local import local_call, partial_where_split
+from repro_torch.parallel.local import dense, local_call, partial_where_split
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype, device):
@@ -80,12 +80,12 @@ def _ssm_params(p, xc, cfg: ModelConfig):
     """From conv output xc (B,S,di) derive (dt (B,S,di), Bc, Cc (B,S,n)), all
     f32 (``_rms`` returns f32); the dt projection runs in f32."""
     n, r = cfg.ssm_state_dim, cfg.dt_rank
-    dbc = xc @ p["x_proj"]
+    dbc = dense(xc, p["x_proj"])
     dt_r, Bc, Cc = torch.split(dbc, [r, n, n], dim=-1)
     dt_r = _rms(dt_r, p["dt_norm"])
     Bc = _rms(Bc, p["b_norm"])
     Cc = _rms(Cc, p["c_norm"])
-    dt = F.softplus(dt_r @ p["dt_proj"].float() + p["dt_bias"])
+    dt = F.softplus(dense(dt_r, p["dt_proj"].float()) + p["dt_bias"])
     return dt, Bc, Cc
 
 
@@ -94,7 +94,7 @@ def _mix(p, x, cfg: ModelConfig, conv_state, h0, *, state_out=None,
     """Shared forward core. Returns (y, conv_state', hT); ``state_out``
     receives hT (it may be ``h0``)."""
     di = cfg.d_inner
-    xz = logical(x @ p["in_proj"], "batch", "act_seq", "ssm_inner2")
+    xz = logical(dense(x, p["in_proj"]), "batch", "act_seq", "ssm_inner2")
     xin, z = xz[..., :di], xz[..., di:]
     xc, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"], conv_state)
     xc = F.silu(xc)
@@ -108,7 +108,7 @@ def _mix(p, x, cfg: ModelConfig, conv_state, h0, *, state_out=None,
     else:
         y, hT = scan(xc.float(), dt, A, Bc, Cc, p["D"], h0, state_out=state_out)
     y = logical((y * F.silu(z.float())).to(x.dtype), "batch", "act_seq", "ssm_inner")
-    return logical(y @ p["out_proj"], "batch", "act_seq", None), conv_state, hT
+    return logical(dense(y, p["out_proj"]), "batch", "act_seq", None), conv_state, hT
 
 
 def _mesh_scan(scan, x, dt, A, Bc, Cc, D, h0):

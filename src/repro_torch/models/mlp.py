@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.models.common import act_fn, dense_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import P, is_dtensor, logical, sharding_ctx
+from repro_torch.parallel.local import dense
 
 RECORD = None
 """Measurement hook, off while None. Set it to a list and every MoE call
@@ -87,14 +88,14 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, device):
 def apply_mlp(p, x, cfg: ModelConfig):
     act = act_fn(cfg.mlp_type)
     if _gated(cfg):
-        h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = act(dense(x, p["w_gate"])) * dense(x, p["w_up"])
     else:
-        h = x @ p["w_in"]
+        h = dense(x, p["w_in"])
         if cfg.use_bias:
             h = h + p["b_in"]
         h = act(h)
     h = logical(h, "batch", "act_seq_mlp", "act_ff")
-    y = h @ p["w_out"]
+    y = dense(h, p["w_out"])
     if cfg.use_bias:
         y = y + p["b_out"]
     return logical(y, "batch", "act_seq", None)
@@ -129,7 +130,7 @@ def _top_k(probs, k: int):
 
 def _route(x2, router, k: int):
     """Returns (gates (..., k), idx (..., k), probs (..., E)). f32 routing."""
-    logits = x2.float() @ router.float()
+    logits = dense(x2.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     gates, idx = _top_k(probs, k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -252,7 +253,8 @@ def _moe_smap(p, x, cfg: ModelConfig, mesh, rules):
     """EP / ETP dispatch over local shards (see the module docstring). x is
     a DTensor (B, S, d); returns (y laid out as the tokens were dispatched,
     aux, a replicated scalar)."""
-    from torch.distributed._functional_collectives import (all_to_all_single_autograd,
+    from torch.distributed._functional_collectives import (all_to_all_single,
+                                                           all_to_all_single_autograd,
                                                            wait_tensor)
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
@@ -311,13 +313,15 @@ def _moe_smap(p, x, cfg: ModelConfig, mesh, rules):
         # (E, C, d) -> tp chunks of E/tp experts: chunk j to rank j of tp;
         # rank i receives every rank's tokens for its own experts
         group = _group(mesh, tp)
+        # under inference mode no autograd kernel may run (torch 2.11 then
+        # finds no kernel for the autograd collective)
+        a2a = all_to_all_single_autograd if torch.is_grad_enabled() else all_to_all_single
         send = disp.reshape(E, C, d)
-        recv = wait_tensor(all_to_all_single_autograd(send, None, None, group))
+        recv = wait_tensor(a2a(send, None, None, group))
         El = E // tp_size
         recv = recv.reshape(tp_size, El, C, d)  # (source rank, local expert, C, d)
         out = _expert_ffn(recv, wg, wu, wo, cfg)
-        back = wait_tensor(all_to_all_single_autograd(
-            out.reshape(E, C, d), None, None, group))
+        back = wait_tensor(a2a(out.reshape(E, C, d), None, None, group))
         y = _combine(back.reshape(1, E, C, d), book, gates)
         y = DTensor.from_local(y.reshape(Bl, Sl, d), mesh, xpl, run_check=False)
     else:

@@ -31,7 +31,7 @@ from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.models.common import dense_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import is_dtensor, logical, logical_placements, split_last
-from repro_torch.parallel.local import local_call, partial_where_split
+from repro_torch.parallel.local import dense, local_call, partial_where_split
 
 _TM_LORA = 32  # token-mix lora rank (the reference ignores cfg.rwkv_lora_dim)
 _DECAY_LORA = 64
@@ -95,11 +95,11 @@ def _tm_projections(p, x, shifted):
     """Data-dependent token-shift mixing -> r,k,v,w,g inputs, (5,B,S,d)."""
     xx = shifted - x
     xxx = x + xx * p["maa_x"]
-    sx = torch.tanh(xxx @ p["tm_w1"])
+    sx = torch.tanh(dense(xxx, p["tm_w1"]))
     B, S = x.shape[:2]
     sx = split_last(sx, (5, _TM_LORA), "batch", "act_seq", None, None)
     sx = sx.permute(2, 0, 1, 3)  # (5,B,S,lora)
-    offs = torch.einsum("nbsl,nld->nbsd", sx, p["tm_w2"])
+    offs = torch.stack([dense(sx[i], p["tm_w2"][i]) for i in range(5)])
     return x[None] + xx[None] * (p["maa_rkvwg"][:, None, None, :] + offs)
 
 
@@ -114,12 +114,12 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, shift_state=None, wkv_state=None, *,
     mr, mk, mv, mw, mg = logical(_tm_projections(p, x, shifted), None, "batch", "act_seq")
 
     # (B,S,H,hd) projections, passed to the scan as (B,H,S,hd) views
-    r = split_last(mr @ p["wr"], (H, hd), "batch", "act_seq", "heads", None).transpose(1, 2)
-    k = split_last(mk @ p["wk"], (H, hd), "batch", "act_seq", "heads", None).transpose(1, 2)
-    v = split_last(mv @ p["wv"], (H, hd), "batch", "act_seq", "heads", None).transpose(1, 2)
-    g = F.silu(mg @ p["wg"])
-    decay = p["decay_base"] + torch.tanh(mw @ p["decay_w1"]).float() @ p[
-        "decay_w2"].float()
+    r = split_last(dense(mr, p["wr"]), (H, hd), "batch", "act_seq", "heads", None).transpose(1, 2)
+    k = split_last(dense(mk, p["wk"]), (H, hd), "batch", "act_seq", "heads", None).transpose(1, 2)
+    v = split_last(dense(mv, p["wv"]), (H, hd), "batch", "act_seq", "heads", None).transpose(1, 2)
+    g = F.silu(dense(mg, p["wg"]))
+    decay = p["decay_base"] + dense(torch.tanh(dense(mw, p["decay_w1"])).float(),
+                                    p["decay_w2"].float())
     w = split_last(torch.exp(-torch.exp(decay.float())), (H, hd), "batch", "act_seq",
                    "heads", None).transpose(1, 2)
 
@@ -136,7 +136,7 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, shift_state=None, wkv_state=None, *,
     y = y.transpose(1, 2).reshape(B, S, d)
     y = _group_norm(y.to(x.dtype), p["ln_x"], H)
     y = (y * g).to(x.dtype)
-    return logical(y @ p["wo"], "batch", "act_seq", None), new_shift, sT
+    return logical(dense(y, p["wo"]), "batch", "act_seq", None), new_shift, sT
 
 
 def _mesh_scan(scan, r, k, v, w, u, s0):
@@ -157,8 +157,8 @@ def rwkv_channel_mix(p, x, cfg: ModelConfig, shift_state=None):
     xx = shifted - x
     xk = x + xx * p["maa_k"]
     xr = x + xx * p["maa_r"]
-    h = logical(torch.square(torch.relu(xk @ p["wk"])), "batch", "act_seq_mlp", "act_ff")
-    y = torch.sigmoid(xr @ p["wr"]) * (h @ p["wv"])
+    h = logical(torch.square(torch.relu(dense(xk, p["wk"]))), "batch", "act_seq_mlp", "act_ff")
+    y = torch.sigmoid(dense(xr, p["wr"])) * dense(h, p["wv"])
     return logical(y, "batch", "act_seq", None), new_shift
 
 

@@ -84,6 +84,53 @@ def local_call(fn: Callable, args: Sequence, in_placements: Sequence,
                  for o, pl in zip(outs, out_placements))
 
 
+def dense(x, w):
+    """``x @ w`` for x (..., d) and a 2-D weight w (d, f). On a mesh the
+    product runs on local shards (``local_call``) with placements decided
+    here, mesh dim by mesh dim, as FSDP and Megatron lay a linear layer out:
+
+      * x split on a leading dim: w whole there (gathered), the output split
+        as x, w's gradient a partial sum;
+      * x split on d: w split on its rows there (row parallel), the output a
+        partial sum;
+      * x whole and w stored split on its columns: w kept so (column
+        parallel), the output split on f, x's gradient a partial sum;
+      * otherwise w whole and the output whole.
+
+    Every weight product of the models goes through it (attention, the MLP
+    and the MoE router, Mamba, RWKV-6, the unembedding), so one rule lays
+    them all out. DTensor's own matmul picks among such layouts by a cost
+    that depends on the sizes, so a full-width step can get a partial
+    gradient where its smoke-size twin gets a split one; torch 2.11 then
+    fails to add it to a split one, and refuses to flatten a batch and a
+    sequence that are both split."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = (x if is_dtensor(x) else w).device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    xst = tuple(x.placements) if is_dtensor(x) else rep
+    wst = tuple(w.placements) if is_dtensor(w) else rep
+    last = x.dim() - 1
+    xpl, wpl, opl, xg, wg = [], [], [], [], []
+    for xp, wp in zip(xst, wst):
+        xd = getattr(xp, "dim", None)
+        if xd is not None and xd < last:
+            row = (xp, Replicate(), xp, xp, Partial())
+        elif xd == last:
+            row = (xp, Shard(0), Partial(), xp, Shard(0))
+        elif getattr(wp, "dim", None) == 1:
+            row = (Replicate(), Shard(1), Shard(last), Partial(), Shard(1))
+        else:  # x whole (a partial x is reduced first)
+            row = (Replicate(),) * 5
+        for out, p in zip((xpl, wpl, opl, xg, wg), row):
+            out.append(p)
+    (y,) = local_call(lambda xl, wl: xl @ wl, (x, w), (xpl, wpl), (opl,), mesh,
+                      grad_placements=(xg, wg))
+    return y
+
+
 def partial_where_split(pl_self, pl_others):
     """Gradient placements of an input laid out with ``pl_self``: Partial on
     every mesh dim where it is replicated and some other input is split."""

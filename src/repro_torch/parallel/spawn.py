@@ -37,11 +37,14 @@ def _rank_main(rank: int, n: int, store_path: str, fn, args, timeout_s: float, o
         dist.init_process_group(backend, store=dist.FileStore(store_path, n),
                                 rank=rank, world_size=n,
                                 timeout=datetime.timedelta(seconds=timeout_s), **kw)
+        # the outcome goes to the parent before the group is torn down: a
+        # rank that failed while its peers wait in a collective would else
+        # wait in ``destroy_process_group`` and never report
         try:
-            result = fn(rank, *args)
-        finally:
-            dist.destroy_process_group()
-        out.put((rank, "ok", result))
+            out.put((rank, "ok", fn(rank, *args)))
+        except BaseException:  # noqa: BLE001 -- reported to the parent
+            out.put((rank, "error", traceback.format_exc()))
+        dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 -- reported to the parent
         out.put((rank, "error", traceback.format_exc()))
 

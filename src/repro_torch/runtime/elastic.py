@@ -46,6 +46,7 @@ from repro_torch.launch.steps import make_train_step, train_state_specs
 from repro_torch.models.decoder import DecoderLM
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel import use_sharding_ctx
+from repro_torch.parallel.groups import mesh_over
 from repro_torch.parallel.distribute import distribute_tree
 from repro_torch.parallel.layouts import layout_rules, param_specs, to_shardings
 from repro_torch.runtime.straggler import StragglerWatchdog
@@ -59,16 +60,17 @@ def _distributed() -> bool:
 
 
 def _mesh_from(devices, model_par: int):
-    """A (data, model) ``DeviceMesh`` over the ranks ``devices``; the mesh's
-    device type follows the default group's backend (NCCL: cuda)."""
+    """A (data, model) ``DeviceMesh`` over the ranks ``devices``, or None on
+    a rank outside them; the mesh's device type follows the default group's
+    backend (NCCL: cuda). Every rank of the default group calls it with the
+    same ``devices``, as building the mesh's groups is collective."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
 
     n = len(devices)
     assert n % model_par == 0
     kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
     ranks = torch.tensor([int(d) for d in devices]).reshape(n // model_par, model_par)
-    return DeviceMesh(kind, ranks, mesh_dim_names=("data", "model"))
+    return mesh_over(kind, ranks, ("data", "model"))
 
 
 class ElasticTrainer:
@@ -113,10 +115,10 @@ class ElasticTrainer:
             self.step_fn = make_train_step(self.model, self.opt)
             return
         self.step_fn = make_train_step(self.model, self.opt)
-        import torch.distributed as dist
-
         self.mesh = _mesh_from(devices, self.model_par)
-        self.member = dist.get_rank() in [int(d) for d in devices]
+        self.member = self.mesh is not None
+        if not self.member:
+            return
         self.device = torch.device(self.mesh.device_type)
         cfg = self.model.cfg
         self.rules = layout_rules(self.mesh, cfg, "train",
@@ -132,7 +134,7 @@ class ElasticTrainer:
         laid out on the mesh where there is one."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = self.model.init(gen, device=self.device)
-        if self.mesh is not None:
+        if self.mesh_mode:
             params = distribute_tree(params, self.state_shardings["params"])
         return self.opt.init_state(params)
 
@@ -143,7 +145,7 @@ class ElasticTrainer:
         return self.opt.init_state(self.model.init_shape())
 
     def _restore(self, template, step=None):
-        if self.mesh is None:
+        if not self.mesh_mode:
             return self.ckpt.restore(template, step=step, device=self.device)
         return self.ckpt.restore(template, step=step, shardings=self.state_shardings)
 
@@ -195,13 +197,13 @@ class ElasticTrainer:
         self.devices = list(devices)
         self._build(self.devices)
         self.rescales += 1
-        if self.mesh is not None and not self.member:
+        if self.mesh_mode and not self.member:
             return None
         state, _ = self._restore(template, step=step)
         return state
 
     def _devices_for(self, n_dev: int):
-        if self.mesh is None:
+        if not self.mesh_mode:
             return self.devices[:1] * n_dev
         import torch.distributed as dist
 
@@ -214,7 +216,7 @@ class ElasticTrainer:
         mesh the count must be 1). Returns the final state (None on a rank
         outside the final mesh)."""
         preempt_at = preempt_at or {}
-        if self.mesh is not None and not self.member:
+        if self.mesh_mode and not self.member:
             return self._finish(None, total_steps)
         start = 0
         latest = self.ckpt.latest_step()
@@ -229,7 +231,7 @@ class ElasticTrainer:
             n_dev = self._plan_rescale(step, preempt_at.get(step))
             if n_dev is not None:
                 self._deferred_n_dev = None
-                if self.mesh is None and n_dev != 1:
+                if not self.mesh_mode and n_dev != 1:
                     raise ValueError(f"a revocation to {n_dev} devices needs a mesh: "
                                      f"initialise torch.distributed first")
                 state = self.rescale(self._devices_for(n_dev), step, state)
@@ -238,7 +240,7 @@ class ElasticTrainer:
                     return self._finish(None, total_steps)
             batch = self.data.batch(step)
             t0 = time.perf_counter()
-            if self.mesh is None:
+            if not self.mesh_mode:
                 state, metrics = self.step_fn(state, batch)
             else:
                 batch = distribute_tree({k: torch.as_tensor(v) for k, v in batch.items()},
@@ -256,7 +258,7 @@ class ElasticTrainer:
     def _finish(self, state, total_steps):
         """On a mesh every rank of the default group leaves ``run`` together,
         those the last rescale left out included."""
-        if self.mesh is not None:
+        if self.mesh_mode:
             import torch.distributed as dist
 
             dist.barrier()

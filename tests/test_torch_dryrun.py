@@ -97,17 +97,18 @@ def test_dryrun_twin_reproduces_reference_cell(fresh, cell):
 
 
 @pytest.mark.parametrize("mesh,data", [("single", 16), ("multi", 32)])
-def test_decode_cell_counts_the_kv_cache_a_step_gathers(fresh, mesh, data):
+def test_decode_cell_gathers_no_kv_cache(fresh, mesh, data):
     """deepseek-coder-33b at decode_32k (62 attention layers, 8 KV heads of
     128, bf16): each rank holds its 128 / ``data`` rows and 1/16 of the
-    32768 positions ("model"), and a decode step gathers the positions
-    whole, 16 times that."""
+    32768 positions ("model"), and a decode step attends over those slots
+    alone (the ranks' softmax statistics are merged), so it gathers
+    nothing: the bytes held while attending are the bytes held."""
     cell = f"{mesh}/deepseek-coder-33b__decode_32k.json"
     held = 62 * 2 * (128 // data) * (32768 // 16) * 8 * 128 * 2
     for got in (json.loads((fresh / cell).read_text()),
                 json.loads((TWIN / cell).read_text())):
         assert got["decode_kv_bytes_per_device"] == held
-        assert got["decode_kv_bytes_per_device_gathered"] == 16 * held
+        assert got["decode_kv_bytes_per_device_gathered"] == held
 
 
 @pytest.mark.parametrize("arch,layout", list(TRACES),

@@ -263,6 +263,35 @@ def test_decode_split_kernel_matches_plain(cuda, dtype, L, G, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("L,G,hd,softcap", [
+    (1, 8, 128, 0.0),      # one key
+    (15, 12, 64, 0.0),     # fewer keys than one split
+    (1000, 1, 32, 30.0),   # L not a multiple of the split length; softcap
+    (1000, 4, 256, 0.0),
+    (4099, 6, 128, 0.0),   # mixtral's group, many splits
+], ids=lambda x: str(x))
+def test_decode_stats_kernel_matches_plain(cuda, dtype, L, G, hd, softcap):
+    """B3 with statistics: its f32 o rounded to q's dtype is the o of the
+    launch without them, bit for bit; o, m and l against
+    ``decode_attention_ref(stats=True)`` (o at the dtype's tolerance, m
+    within 2e-5, l at rtol 2e-5), a NULL row (every position masked at the
+    finite NEG_INF) included; one ``decode_attention_stats`` launch."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v, bias = _decode_case(gen, cuda, dtype, 4, 2, G, L, hd, null_row=True)
+    reset_counts()
+    o, m, l = decode_attention_fwd(q, k, v, bias, softcap=softcap, stats=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["decode_attention_stats"] == 1 and LAUNCHES["decode_attention"] == 0
+    assert o.dtype == m.dtype == l.dtype == torch.float32 and m.shape == (4, 2 * G)
+    assert torch.equal(o.to(dtype), decode_attention_fwd(q, k, v, bias, softcap=softcap))
+    ro, rm, rl = decode_attention_ref(q, k, v, bias, softcap=softcap, stats=True)
+    torch.testing.assert_close(o, ro, atol=_tol(dtype), rtol=_tol(dtype))
+    torch.testing.assert_close(m, rm, atol=2e-5, rtol=0)
+    torch.testing.assert_close(l, rl, atol=0, rtol=2e-5)
+    assert (m[1] == NEG_INF).all() and (l[1] == L).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("layout", ["dense", "paged"])
 def test_decode_null_slot_row_is_finite_and_matches_plain(cuda, dtype, layout):
     """A row whose bias is all NEG_INF (a NULL slot) averages V in every

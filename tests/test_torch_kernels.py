@@ -37,7 +37,7 @@ from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
     SPLIT_ALIGN, DecodeParams, decode_attention_fwd, dense_params,
     paged_decode_attention_fwd, paged_params, plan, split_plan)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
-    combine, decode_attention_ref, split_partials)
+    combine, decode_attention_ref, merge_stats, split_partials)
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
@@ -257,6 +257,52 @@ def test_split_then_combine_bf16_and_softcap(softcap):
     assert n_split > 1 and L % split_len
     o = combine(*split_partials(tq, tk, tv, tb, n_split, split_len, softcap=softcap))
     _close(o, decode_attention_ref(tq, tk, tv, tb, softcap=softcap).float(), atol=2e-2)
+
+
+@pytest.mark.parametrize("n_shards,valid,softcap", [
+    (4, (256, 100, 5, 0), 0.0),      # shards with every key masked; a NULL row
+    (8, (256, 31, 1, 200), 30.0),    # softcap; most shards empty in three rows
+    (2, (0, 0, 129, 256), 0.0),      # two NULL rows: the merge averages V
+    (1, (256, 7, 0, 64), 0.0),       # one shard: the row itself
+], ids=["4", "8-softcap", "2-null", "1"])
+def test_decode_stats_merged_over_shards_equal_the_unsplit_row(n_shards, valid, softcap):
+    """``decode_attention_ref(stats=True)``: its o rounds to the o without
+    statistics; its (o, m, l) equal the split partials merged by
+    ``combine`` (m the max of the splits', l their weighted sum); and the
+    (o, m, l) of shards of the cache, merged as the mesh decode merges its
+    ranks' (``merge_stats``), equal the unsplit row within 2e-5, also where
+    every key of a shard, or of the row, is masked (NEG_INF, never -inf)."""
+    rng = np.random.default_rng(24)
+    B, H, KV, L, hd = 4, 8, 2, 256, 32
+    q, k, v, bias = map(_t, _split_case(rng, B, H, KV, L, hd, valid))
+    reset_counts()
+    o, m, l = decode_attention(q, k, v, bias, softcap=softcap, stats=True)
+    assert PLAIN_CALLS["decode_attention_stats"] == 1 and PLAIN_CALLS["decode_attention"] == 0
+    assert o.dtype == m.dtype == l.dtype == torch.float32 and m.shape == (B, H)
+    assert torch.equal(o, decode_attention_ref(q, k, v, bias, softcap=softcap))
+    pm, pl, pacc = split_partials(q, k, v, bias, 8, L // 8, softcap=softcap)
+    torch.testing.assert_close(o, combine(pm, pl, pacc), atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(m, pm.amax(-1), atol=2e-5, rtol=0)
+    torch.testing.assert_close(l, (pl * torch.exp(pm - m[..., None])).sum(-1),
+                               atol=0, rtol=2e-5)
+    n = L // n_shards
+    parts = [decode_attention_ref(q, k[:, :, i * n:(i + 1) * n], v[:, :, i * n:(i + 1) * n],
+                                  bias[:, i * n:(i + 1) * n], softcap=softcap, stats=True)
+             for i in range(n_shards)]
+    if n_shards > 1:  # a shard whose every key is masked sits at NEG_INF, finite
+        masked = (bias.reshape(B, n_shards, n) < 0).all(-1)
+        assert masked.any()
+        for i, (_, mi, li) in enumerate(parts):
+            assert torch.isfinite(mi).all()
+            assert (mi[masked[:, i]] == NEG_INF).all() and (li[masked[:, i]] == n).all()
+    merged = merge_stats(*(torch.stack(t) for t in zip(*parts)))
+    assert torch.isfinite(merged).all()
+    torch.testing.assert_close(merged, o, atol=2e-5, rtol=2e-5)
+    null = [i for i, x in enumerate(valid) if x == 0]
+    if null:
+        mean_v = v[null].mean(2).reshape(len(null), KV, 1, hd).expand(
+            -1, -1, H // KV, -1).reshape(len(null), H, hd)
+        torch.testing.assert_close(merged[null], mean_v, atol=2e-5, rtol=2e-5)
 
 
 # ------------------------------------------- flash: TMA's rules on the views
