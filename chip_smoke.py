@@ -257,8 +257,29 @@ raises with fewer than four cards). Phases (none catches its own failure):
    (c) mixtral-8x22b's decode_ws step in f32 with expert parallelism
    (``all_to_all``), (d) an elastic 4 -> 2 -> 4 rescale beside the same on
    four gloo ranks; each held to one card, with the NCCL kernels' device
-   time and a step's host ms; a ``mesh4`` JSON line, the card, and the
-   ``ok`` line (count 4). It must end within MESH4_BUDGET_S.
+   time and a step's host ms, (e) phase 14's cp_fsdp step on (2, 2), each
+   rank's count (its NCCL collectives' bytes included) equal to the meta
+   count under a fake 4-rank group; a ``mesh4`` JSON line, the card, and
+   the ``ok`` line (count 4). It must end within MESH4_BUDGET_S.
+14. cost — what a step costs, counted by
+   ``repro_torch.parallel.cost.CostMode`` (the twin of the reference's HLO
+   walk: products' flops, every op's bytes, the collectives' wire bytes;
+   each kernel op counted once by its formula, the formula each kernel
+   row's bound comes from) on the card, through the kernels, and on meta
+   tensors at the same shapes: the two counts must be equal. The steps are
+   taken inside the phases that hold their weights: at the end of phase 3,
+   starcoder2-3b's longest prompt prefilled in its 8192 bucket, a paged and
+   a dense decode step of 4 slots; at the end of each phase 5 run, one
+   more train step of rwkv6-3b (4 x 2048) and of the jamba block (8 x
+   1024); in phase 13, deepseek-coder-33b's cp_fsdp step on the one-rank
+   mesh. The meta counts run in a process of their own, started after the
+   build (one thread; the mesh step under a fake process group), and are
+   compared once phase 13 ends. Each step's line gives its counted flops
+   and bytes, its device ms (CUDA events; for a train step, the profiled
+   step's busy time) and wall ms, the achieved TFLOP/s and TB/s over the
+   wall ms and their shares of the card's peaks, and the card; a ``cost``
+   JSON line goes before the kernel table. The card-side work and any wait
+   for the meta counts must stay within COST_BUDGET_S.
 
 ``--jamba-grad-study SEED [SEED ...]`` builds the kernels and runs only
 ``jamba_grad_phase`` for each seed, printing how far each mixer leaf lies
@@ -281,13 +302,15 @@ left allocated before each model phase, so the 80 GB card holds one
 phase's peak at a time. The last lines are the fleet summary (JSON), the
 serving fleet's summary (JSON), the serving_torch summary (JSON), the
 arrivals summary (JSON), the families summary (JSON), the MoE training
-summary (JSON), the mesh summary (JSON), the kernel table (JSON), the card's
+summary (JSON), the mesh summary (JSON), the step costs (JSON), the kernel
+table (JSON), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import math
@@ -321,7 +344,6 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # backward outputs, by dtype
 DEPTH_RATIO = 4               # full-depth leaf: kernel path's distance from the
                               # f64-scan path over the plain f32 path's
-REF_CHUNK = 64                # the TPU scan's default chunk (B4-B7)
 TRAIN_BATCH_JAMBA, TRAIN_SEQ_JAMBA = 8, 1024  # the config's 8 microbatches of 1 row
 TRAIN_STEP_KERNELS = {"rwkv6_scan": "rwkv6_kernel",        # op: its kernels' name in a
                       "rwkv6_scan_bwd": "rwkv6_bwd_kernel",  # profile (B5, B7, B4, B6)
@@ -353,24 +375,18 @@ def time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes, flops, dtype_name):
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the peak rate of their type."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+def bound(cost, dtype_name):
+    """The least time the card could take for ``cost`` (a kernel op's
+    ``*_cost``: ``repro_torch.parallel.cost.Cost``, flops and bytes): the
+    larger of the bytes over the memory rate and the operations over the
+    peak rate of their type."""
+    t_bytes, t_ops = cost.bytes / HBM_BYTES_PER_S, cost.flops / PEAK_FLOPS[dtype_name]
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def ref_chunk_bytes(B, H, S, row_floats):
-    """f32 bytes of one row of ``row_floats`` per (b, h) and 64-step chunk:
-    the chunk-start states and du partials that the replaced TPU scan keeps
-    at its default chunk. The port's 8-step checkpoints are its own design,
-    so a bound counts them at the reference's interval."""
-    return B * H * -(-S // REF_CHUNK) * row_floats * 4
 
 
 def log_ptxas(stem, path):
@@ -505,15 +521,6 @@ def _case_layout(case):
     return label, H, KV, hd, case.get("window", W), prefix
 
 
-def decode_bound(q, kv_row_bytes, visible, others, dtype_name):
-    """Bound of one decode call that needs only its ``visible`` keys (summed
-    over the slots): those K/V rows, q, the output and ``others`` (the bias
-    and any page table), each once; 4 operations a head and head element a
-    visible key. The kernels read every position, masked or not."""
-    H, hd = q.shape[1], q.shape[2]
-    return bound(others + 2 * visible * kv_row_bytes, 4 * H * hd * visible, dtype_name)
-
-
 def kernel_phase(dev):
     """B2, B3 and B1 over ``FLASH_CASES`` and ``DECODE_CASES``."""
     import torch
@@ -521,9 +528,12 @@ def kernel_phase(dev):
 
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_fwd, paged_decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ops import (decode_attention_cost,
+                                                         paged_decode_attention_cost)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, paged_decode_attention_ref)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cost
     from repro_torch.kernels.flash_attention.ref import (allowed, attention_ref,
                                                         chunked_attention_ref)
     from repro_torch.optim.compress import quantize_int8
@@ -561,7 +571,6 @@ def kernel_phase(dev):
             if "row" in case and dtype == bf16:
                 n, mask = case.get("iters", 5), allowed(S, S, dev, window=W,
                                                         prefix_len=prefix)
-                pairs = int(mask.sum())
                 if W or prefix:
                     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                         q, k, v, attn_mask=mask, enable_gqa=True)
@@ -573,7 +582,7 @@ def kernel_phase(dev):
                     ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw), n),
                     plain_ms=time_ms(lambda: attention_ref(q, k, v, **kw), -(-n // 2)),
                     library_ms=time_ms(lib, n),
-                    **bound(nbytes(q, k, v, o), 4 * H * hd * pairs, "bfloat16"),
+                    **bound(flash_attention_cost(q, k, v, **kw), "bfloat16"),
                     shape=f"B=1 H={H} KV={KV} S={S} hd={hd} "
                           f"{f'window={W}' if W else 'global'} bf16"))
                 del mask, lib
@@ -595,7 +604,6 @@ def kernel_phase(dev):
                                  f"launch without statistics")
         if dtype == bf16:
             mask = allowed(S, S, dev, window=W, prefix_len=prefix)
-            pairs = int(mask.sum())
             add_row("flash_attention_stats", "", f"{label} S={S} (training)", dict(
                 max_abs_err=err,
                 ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw, stats=True), 5),
@@ -604,7 +612,7 @@ def kernel_phase(dev):
                     q, k, v, chunk_q=cq, chunk_k=ck, **kw), 2),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True), 5),
-                **bound(nbytes(q, k, v, *got), 4 * H * hd * pairs, "bfloat16"),
+                **bound(flash_attention_cost(q, k, v, **kw, stats=True), "bfloat16"),
                 shape=f"B=1 H={H} KV={KV} S={S} hd={hd} window={W} bf16, m and l "
                       f"(B,H,S) f32"))
             log(f"  flash_attention_stats: the same call without statistics "
@@ -644,7 +652,9 @@ def kernel_phase(dev):
             # launch reading from HBM rather than L2
             views = [tuple(c.transpose(1, 2) for c in kv) for kv in caches]
             it = iter(range(10**9))
-            visible, row_bytes = int(ok.sum()), KV * hd * caches[0][0].element_size()
+            # bounds count the keys the bias leaves visible (the kernels read
+            # every position); the ops' count is every position
+            visible = int(ok.sum())
             if timed:
                 def kern():
                     return decode_attention_fwd(q, *views[next(it) % len(views)], bias)
@@ -661,7 +671,8 @@ def kernel_phase(dev):
                         q, *views[next(it) % len(views)], bias), 20),
                     library_ms=library_device_ms(sdpa, 40),
                     event_ms=time_ms(kern, 40), event_library_ms=time_ms(sdpa, 40),
-                    **decode_bound(q, row_bytes, visible, nbytes(q, bias, o), "bfloat16"),
+                    **bound(decode_attention_cost(q, kt, vt, bias, visible=visible),
+                            "bfloat16"),
                     shape=f"B={B} H={H} KV={KV} L={L} hd={hd} "
                           f"{f'window={W} ' if W else ''}bf16, per-slot bias, "
                           f"{visible} of {B * L} positions visible"), events=True)
@@ -694,8 +705,8 @@ def kernel_phase(dev):
                         plain_ms=time_ms(lambda: paged_decode_attention_ref(
                             q, *pools[next(it) % len(pools)], tab, bias), 20),
                         library_ms=None,  # no single PyTorch call gathers through a page table
-                        **decode_bound(q, row_bytes, visible, nbytes(q, tab, bias, po),
-                                       "bfloat16"),
+                        **bound(paged_decode_attention_cost(q, *pools[0], tab, bias,
+                                                            visible=visible), "bfloat16"),
                         shape=f"B={B} H={H} KV={KV} P={P} bs={PAGE} hd={hd} "
                               f"{f'window={W} ' if W else ''}bf16 pool, "
                               f"{visible} of {B * L} positions visible"))
@@ -716,8 +727,9 @@ def kernel_phase(dev):
                         q8, qk, qv, tab, bias, k_scale=ks, v_scale=vs), 40,
                         "decode_kernel", "paged_decode_attention", 2)
                     # an int8 row: hd bytes and one f32 scale a kv head
-                    b8 = decode_bound(q8, KV * (hd + 4), visible, nbytes(q8, tab, bias, o8),
-                                      "bfloat16")["bound_ms"]
+                    b8 = bound(paged_decode_attention_cost(q8, qk, qv, tab, bias, k_scale=ks,
+                                                           v_scale=vs, visible=visible),
+                               "bfloat16")["bound_ms"]
                     log(f"  paged int8 pool (bf16 q): ms={ms8:.4f} bound_ms={b8:.5f} "
                         f"(L2-warm: one pool)")
                     del qk, qv, ks, vs, o8
@@ -761,8 +773,8 @@ def kernel_phase(dev):
                     library_ms=library_device_ms(lambda: F.scaled_dot_product_attention(
                         q[:, :, None], kt, vt, attn_mask=bias[:, None, None, :],
                         enable_gqa=True), 40),
-                    **decode_bound(q, KV * hd * kt.element_size(), visible,
-                                   nbytes(q, bias, *got), "bfloat16"),
+                    **bound(decode_attention_cost(q, kt, vt, bias, stats=True,
+                                                  visible=visible), "bfloat16"),
                     shape=f"B={B} H={H} KV={KV} L={L} hd={hd} "
                           f"{f'window={W} ' if W else ''}bf16, o, m and l f32, "
                           f"{visible} of {B * L} positions visible"))
@@ -787,7 +799,9 @@ def rwkv_kernel_phase(dev):
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.rwkv6_scan.kernel import fwd_plan, rwkv6_scan_fwd
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan_cost
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    from repro_torch.parallel.cost import REF_CHUNK, ref_chunk_bytes
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     n_sm = _build.sm_count(dev)
@@ -805,12 +819,6 @@ def rwkv_kernel_phase(dev):
         u = torch.randn((H, hd), generator=gen, device=dev)
         s0 = 0.5 * torch.randn((B, H, hd, hd), generator=gen, device=dev)
         return r, k, v, w, u, s0
-
-    def flops(B, S):
-        # the least the function needs per (b, h, t): r.S is one FMA and
-        # w*S + k*v a multiply and an FMA per state element (5 flops); the
-        # bonus factors as (r . (u*k)) v, 5 flops per key row
-        return B * H * S * (5 * hd * hd + 5 * hd)
 
     log("kernel phase: rwkv6_scan (B5)")
     B, S = 1, max(PROMPT_LENS)
@@ -833,7 +841,7 @@ def rwkv_kernel_phase(dev):
                                    "rwkv6_scan"),
         plain_ms=time_ms(lambda: rwkv6_scan_ref(*args), 1, warmup=1),
         library_ms=None,  # no single PyTorch call computes the WKV recurrence
-        **bound(nbytes(*args, y, sT), flops(B, S), "float32"),
+        **bound(rwkv6_scan_cost(*args), "float32"),
         shape=f"prefill B={B} H={H} S={S} hd={hd}, r/k/v bf16, w/u/s0 f32, {cols} value "
               f"columns per CTA")
     del args, y, sT, y_ref, sT_ref, yo, so
@@ -861,8 +869,7 @@ def rwkv_kernel_phase(dev):
                                    "rwkv6_kernel", "rwkv6_scan"),
         decode_issue_ms=time_ms(lambda: step(rwkv6_scan_fwd), 100),
         decode_plain_ms=time_ms(lambda: step(rwkv6_scan_ref), 50),
-        decode_bound_ms=bound(nbytes(r, k, v, w, u, s0, y, sT), flops(B, 1),
-                              "float32")["bound_ms"])
+        decode_bound_ms=bound(rwkv6_scan_cost(r, k, v, w, u, s0), "float32")["bound_ms"])
     del r, k, v, w, u, s0, y, sT, states
 
     args = case(1, 513, f32)
@@ -878,8 +885,7 @@ def rwkv_kernel_phase(dev):
     y, sT, starts = rwkv6_scan_fwd(*args, save_states=True)
     _, _, starts_ref = rwkv6_scan_ref(*args, save_states=True)
     _check(f"rwkv6 bf16 save_states B={B} S={S} starts", starts, starts_ref, tol)
-    train_bound = bound(nbytes(*args, y, sT) + ref_chunk_bytes(B, H, S, hd * hd),
-                        flops(B, S), "float32")
+    train_bound = bound(rwkv6_scan_cost(*args, save_states=True), "float32")
     cols = fwd_plan(B, H, hd, n_sm)
     row.update(
         train_ms=time_ms(lambda: rwkv6_scan_fwd(*args, save_states=True), 10),
@@ -916,7 +922,9 @@ def rwkv_bwd_kernel_phase(dev):
 
     from repro_torch.kernels.rwkv6_scan.kernel import (CLUSTER, bwd_threads, rwkv6_scan_bwd,
                                                       rwkv6_scan_fwd)
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan_bwd_cost
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref
+    from repro_torch.parallel.cost import ref_chunk_bytes
 
     gen = torch.Generator(device=dev).manual_seed(5432)
     H, hd = 40, 64
@@ -942,12 +950,6 @@ def rwkv_bwd_kernel_phase(dev):
         return got, max(_check(f"{label} {n}", a, b, BWD_TOL[str(a.dtype)[6:]])
                         for n, a, b in zip(names, got, ref))
 
-    def flops(B, S):
-        # per state element and step: replay (mul + FMA), dr, dk, dw, dv (an
-        # FMA each), the G update (mul + FMA): 14; per row ~15 for the bonus
-        # and du terms
-        return B * H * S * (14 * hd * hd + 15 * hd)
-
     log("kernel phase: rwkv6_scan_bwd (B7)")
     B, S = 2, TRAIN_SEQ
     log(f"  rwkv6 bwd launch: {CLUSTER} CTAs per (b, h) in a thread-block cluster, "
@@ -969,8 +971,7 @@ def rwkv_bwd_kernel_phase(dev):
         library_ms=None,  # no single PyTorch call computes the WKV backward
         # the checkpoints read and the du partials written are counted at
         # the reference's 64-step chunk, not at the port's 8 steps
-        **bound(nbytes(r, k, v, w, dy, u, dsT, dr, dk, dv, dw, ds0)
-                + ref_chunk_bytes(B, H, S, hd * hd + hd), flops(B, S), "float32"),
+        **bound(rwkv6_scan_bwd_cost(*args), "float32"),
         shape=f"B={B} H={H} S={S} hd={hd}, r/k/v/dr/dk/dv bf16, w/dy/u/states f32, "
               f"checkpoints every 8 steps, clusters of {CLUSTER} CTAs")
     extra = nbytes(starts, du) - ref_chunk_bytes(B, H, S, hd * hd + hd)
@@ -1010,6 +1011,7 @@ def ssm_kernel_phase(dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssm_scan.kernel import ssm_scan_fwd
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_cost
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
     gen = torch.Generator(device=dev).manual_seed(6543)
@@ -1024,11 +1026,6 @@ def ssm_kernel_phase(dev):
         A = -(0.5 + 15.5 * torch.rand((Di, N), generator=gen, device=dev))
         return (randn(B, S, Di), dt, A, randn(B, S, N), randn(B, S, N), randn(Di),
                 0.5 * randn(B, Di, N))
-
-    def flops(B, S):
-        # per (d, n, t): dt*A, exp (counted as one), da*h, dtx*B and their
-        # sum, h*C and the running sum; per (d, t): dt*x, D*x and its add
-        return B * S * Di * (7 * N + 3)
 
     def check(label, args):
         y, hT = ssm_scan_fwd(*args)
@@ -1051,7 +1048,7 @@ def ssm_kernel_phase(dev):
                                    "ssm_scan"),
         plain_ms=time_ms(lambda: ssm_scan_ref(*args), 1, warmup=1),
         library_ms=None,  # no single PyTorch call computes the selective scan
-        **bound(nbytes(*args, y, hT), flops(B, S), "float32"),
+        **bound(ssm_scan_cost(*args), "float32"),
         shape=f"prefill B={B} S={S} Di={Di} N={N}, f32")
     del args, y, hT, again
     for S in (37, 130):
@@ -1081,7 +1078,7 @@ def ssm_kernel_phase(dev):
                                    "ssm_scan"),
         decode_issue_ms=time_ms(lambda: step(ssm_scan_fwd), 100),
         decode_plain_ms=time_ms(lambda: step(ssm_scan_ref), 50),
-        decode_bound_ms=bound(nbytes(x, dt, A, Bc, Cc, D, h0, y, hT), flops(B, 1),
+        decode_bound_ms=bound(ssm_scan_cost(x, dt, A, Bc, Cc, D, h0),
                               "float32")["bound_ms"])
     log(f"  ssm prefill ms={row['ms']:.4f} (events) device ms={row['device_ms']:.4f} "
         f"(profiler) plain_ms={row['plain_ms']:.2f} "
@@ -1107,7 +1104,9 @@ def ssm_bwd_kernel_phase(dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssm_scan.kernel import ssm_scan_bwd, ssm_scan_fwd
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_bwd_cost, ssm_scan_cost
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+    from repro_torch.parallel.cost import ref_chunk_bytes
 
     gen = torch.Generator(device=dev).manual_seed(7654)
     tol = BWD_TOL["float32"]
@@ -1135,11 +1134,6 @@ def ssm_bwd_kernel_phase(dev):
         return args, got, starts, max(_check(f"{label} {n}", a, b, tol)
                                       for n, a, b in zip(names, got, ref))
 
-    def flops(B, S, N):
-        # per (d, n, t): the replay's 5 (dt*A, exp, dt x * B and its FMA)
-        # and the backward's 20; ~9 per (d, t) (see ssm_scan.cu)
-        return B * S * Di * (25 * N + 9)
-
     log("kernel phase: ssm_scan_bwd (B6)")
     B, S, N = 1, TRAIN_SEQ_JAMBA, 16
     fwd, dy, dhT = case(B, S, N)
@@ -1156,11 +1150,9 @@ def ssm_bwd_kernel_phase(dev):
                                    "ssm_scan_bwd"),
         plain_ms=time_ms(lambda: ssm_scan_bwd_ref(*args), 1, warmup=1),
         library_ms=None,  # no single PyTorch call computes the selective-scan backward
-        **bound(nbytes(*args[:7], dhT, *got) + ref_starts, flops(B, S, N), "float32"),
+        **bound(ssm_scan_bwd_cost(*args), "float32"),
         shape=f"B={B} S={S} Di={Di} N={N}, f32, checkpoints every 8 steps")
-    x, h0 = fwd[0], fwd[6]  # y is shaped like x, hT like h0
-    train_bound = bound(nbytes(*fwd, x, h0) + ref_starts, B * S * Di * (7 * N + 3),
-                        "float32")
+    train_bound = bound(ssm_scan_cost(*fwd, save_states=True), "float32")
     b4 = dict(
         train_ms=time_ms(lambda: ssm_scan_fwd(*fwd, save_states=True), 10),
         train_device_ms=kernel_device_ms(lambda: ssm_scan_fwd(*fwd, save_states=True), 10,
@@ -1176,7 +1168,7 @@ def ssm_bwd_kernel_phase(dev):
         f"({b4['train_bound_by']}); the port's 8-step checkpoints are {extra / 1e6:.1f} MB "
         f"more than the reference's 64-step chunk, written by B4 and read by B6 "
         f"({1e3 * extra / HBM_BYTES_PER_S:.4f} ms each at the memory rate)")
-    del fwd, dy, dhT, args, got, again, starts, x, h0
+    del fwd, dy, dhT, args, got, again, starts
     for B, S, N in ((2, 37, 16), (2, 130, 16), (2, 130, 8), (1, 1, 8)):
         *_, e = check(f"ssm bwd f32 B={B} S={S} N={N}", *case(B, S, N))
         row["max_abs_err"] = max(row["max_abs_err"], e)
@@ -1318,7 +1310,7 @@ def check_released(dev, what):
         raise AssertionError(f"{left} bytes still allocated before {what}")
 
 
-def serving_phase(dev, seed, cfg, layouts):
+def serving_phase(dev, seed, cfg, layouts, cost=False):
     """One ContinuousBatcher run per layout of the model ``cfg``, the counts
     zeroed just before and read just after each. A config with experts
     must launch B2 exactly once per admitted request and layer and the
@@ -1327,7 +1319,9 @@ def serving_phase(dev, seed, cfg, layouts):
     so only each request's first token must agree across layouts, and the
     dropped expert assignments of each layout are counted in a rerun of
     its requests outside the timed one (``repro_torch.models.mlp.RECORD``)
-    and logged."""
+    and logged. With ``cost`` the phase ends with phase 14's serving steps
+    counted and timed on its weights (``_serving_card``), in
+    ``summary["cost"]``."""
     import numpy as np
     import torch
 
@@ -1474,6 +1468,11 @@ def serving_phase(dev, seed, cfg, layouts):
             log(f"  {name} decode step profile (4 slots): "
                 f"{json.dumps(prof) if prof else 'not measured (no device time recorded)'}")
         del b, model
+        torch.cuda.empty_cache()
+    if cost:
+        t0 = time.perf_counter()
+        summary["cost"] = _serving_card(cfg, params, dev, seed)
+        summary["cost_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     if moe:
         if [t[0] for t in tokens["paged"]] != [t[0] for t in tokens["dense"]]:
@@ -1657,13 +1656,16 @@ def _trainer_classes():
     return FewCheckpointer, TimedTrainer
 
 
-def train_phase(dev, seed, cfg, batch_rows, seq, preempt_at):
+def train_phase(dev, seed, cfg, batch_rows, seq, preempt_at, cost=False):
     """``cfg`` at full width in bf16, global batch ``batch_rows`` x ``seq``
     in the config's microbatches, remat as configured, TRAIN_STEPS steps at
     a constant learning rate, the revocations ``preempt_at``; the counts
     zeroed just before the run and read just after. The run writes at most
     one checkpoint, the first revocation's: the trainer's closing
-    checkpoint, and any after the first, are logged and not written."""
+    checkpoint, and any after the first, are logged and not written. With
+    ``cost`` one more step on the trained state is phase 14's, counted, in
+    ``summary["cost"]`` beside the last step's wall ms and the profiled
+    step's device busy ms."""
     import numpy as np
     import torch
 
@@ -1735,6 +1737,11 @@ def train_phase(dev, seed, cfg, batch_rows, seq, preempt_at):
             log(f"  train step {op} ms={prof['named_ms'][kernel]:.4f} ({cfg.name}, profiler "
                 f"device time of the {kernel} launches in one step)")
     summary["profile"] = prof
+    if cost:
+        t0 = time.perf_counter()
+        summary["cost"] = (_count_dict(_counted(lambda: trainer.raw_step_fn(state, batch))),
+                           prof["device_ms_per_step"] if prof else float("nan"), steps_ms[-1])
+        summary["cost_s"] = time.perf_counter() - t0
     del state, trainer, opt
     torch.cuda.empty_cache()
     return counts, summary
@@ -2528,24 +2535,14 @@ def event_counts_sha256(event_counts):
     return hashlib.sha256(ev.tobytes()).hexdigest()
 
 
-def fleet_bound_bytes(spec, lanes=1):
-    """Bytes the serving-fleet kernel must move at least, each input read
-    once and each output written once, as ``serving_fleet_fwd`` lays them
-    out: the shared request stream and per-tick arrays, each lane's
-    parameters and key, and each lane's outputs (the per-tick series, the
-    per-request start, finish and hedge flag, the lifetimes, the counters,
-    the final replica and credit state). A lane's hot state (flags, queue
-    heads, slots, pipe, credits) stays in shared memory for the whole run,
-    and its queues, reroute ring and routing ticks are scratch in global
-    memory: the function need not move either, so neither counts."""
-    from repro_torch.kernels.serving_fleet.kernel import COUNTERS
+def fleet_bound(spec, lanes=1):
+    """The serving-fleet kernel's bound for ``lanes`` lanes of ``spec``: its
+    op's count (``kernels/serving_fleet/ops.fleet_bytes``: every input read
+    once, every output written once; no products)."""
+    from repro_torch.kernels.serving_fleet.ops import fleet_bytes
+    from repro_torch.parallel.cost import Cost
 
-    R, N, T, NT = spec.n_replicas, spec.n_requests, spec.horizon, spec.n_tenants
-    consts = 4 * (3 * N + 3 * T)
-    params = 4 * (6 + 2 * NT) + 8
-    outputs = (9 * N + 4 * T * (16 + 2 * NT) + 4 * spec.lifetime_cap
-               + 4 * len(COUNTERS) + 5 * R + 4 * NT)
-    return consts + lanes * (params + outputs)
+    return bound(Cost(0.0, float(fleet_bytes(spec, lanes))), "float32")
 
 
 def fleet_kernel_ms(fn, n):
@@ -2695,7 +2692,7 @@ def serving_torch_phase(dev, fleet_host_s):
         cfg, spec, consts, params, key, _, _ = _fleet_point(name, True, 42, 0)
         row = both(name, spec, params, consts, key, cfg)
         row["smem_bytes"] = smem_bytes(spec)
-        row["bound_ms"] = bound(fleet_bound_bytes(spec), 0, "float32")["bound_ms"]
+        row["bound_ms"] = fleet_bound(spec)["bound_ms"]
         if name == SERVE_TORCH_SCENARIO:
             row["device_ms"] = fleet_kernel_ms(
                 lambda: st.get_program(spec, device=dev)(params, consts, key),
@@ -2723,8 +2720,7 @@ def serving_torch_phase(dev, fleet_host_s):
         wall_ms=ms_b, kernel_call_ms=1e3 * obs["exec_s"],
         us_per_tick=1e6 * obs["exec_s"] / ticks, host_fleet_s=fleet_host_s,
         host_fleet_over_wall=1e3 * fleet_host_s / ms_b,
-        bound_ms=bound(fleet_bound_bytes(st.FleetSpec(**SERVE_TORCH_PAPER_SPEC)), 0,
-                       "float32")["bound_ms"],
+        bound_ms=fleet_bound(st.FleetSpec(**SERVE_TORCH_PAPER_SPEC))["bound_ms"],
         golden="equal", metrics=paper.metrics)
     log(f"  serving_torch (b) paper scale on the card: {json.dumps(summary['paper'])}")
 
@@ -2776,8 +2772,7 @@ def serving_torch_phase(dev, fleet_host_s):
         _fleet_equal(f"cube lane {lane} vs its single point",
                      {k: v[lane] for k, v in cube.items()}, one)
     summary["cube"]["lanes_checked"] = list(SERVE_TORCH_CUBE_LANES)
-    summary["cube"]["bound_ms"] = bound(fleet_bound_bytes(cube_spec, n_lanes), 0,
-                                        "float32")["bound_ms"]
+    summary["cube"]["bound_ms"] = fleet_bound(cube_spec, n_lanes)["bound_ms"]
     # the paper-scale kernel alone (uncounted): the launch's device time,
     # without the program call's uploads, allocations and host copies
     _, spec_b, consts_b, params_b, key_b, _, _ = _fleet_point(
@@ -2798,7 +2793,7 @@ def serving_torch_phase(dev, fleet_host_s):
                plain_device=summary["plain_device"], library_ms=None,
                shape=f"{SERVE_TORCH_SCENARIO} quick: {quick_spec.n_replicas} replicas x "
                      f"{quick_spec.slot_cap} slots, {quick_spec.horizon} ticks, 1 lane",
-               **bound(fleet_bound_bytes(quick_spec), 0, "float32"))
+               **fleet_bound(quick_spec))
     return summary, row, counts
 
 
@@ -3376,12 +3371,242 @@ def moe_train_phase(dev, seed):
 
 
 # --------------------------------------------------------------------------
+# phase 14: a step's counted work, on the card and on meta tensors (inside phases 3,
+# 5 and 13)
+
+COST_BUDGET_S = 30.0     # 8.4-11.0 s measured (H100 80GB HBM3, 700 W), meta counts aside
+COST_SLOTS, COST_MAX_LEN = 4, 8192     # the serving phase's batcher: slots, max_len
+COST_DECODE_POS = (LONG_PROMPT + MAX_NEW - 1, 2070, 523, 40)  # the slots' positions
+COST_MESH = "deepseek-coder-33b mesh train"
+
+
+def _counted(run):
+    """A ``CostMode`` that counted one call of ``run``."""
+    from repro_torch.parallel.cost import CostMode
+
+    with CostMode() as cm:
+        run()
+    return cm
+
+
+def _count_dict(cm):
+    return {"totals": cm.totals(), "by_op": {k: list(v) for k, v in cm.by_op.items()}}
+
+
+def _timed_step(run):
+    """(device ms, wall ms) of one call of ``run``: CUDA events around it
+    on the current stream, and the host's clock from a synchronised start
+    to a synchronised end."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
+
+
+def cost_row(name, card, meta, device_ms, wall_ms, dtype_name, smi, device_how="CUDA events"):
+    """Hold the card's count of one step (``card``: its totals and by-op
+    rows) to the meta count of the same step, exactly: flops, bytes,
+    ``bytes_min``, collective bytes by kind and kernel calls. Log the
+    step's line: its counted work, device ms (measured as ``device_how``
+    says) and wall ms, and the achieved rates over the wall ms, with their
+    shares of the card's peaks."""
+    if card["totals"] != meta["totals"]:
+        diff = [f"{k}: {card['by_op'].get(k)} vs {meta['by_op'].get(k)}"
+                for k in sorted(set(card["by_op"]) | set(meta["by_op"]))
+                if card["by_op"].get(k) != meta["by_op"].get(k)]
+        raise AssertionError(f"cost {name}: the card counts {card['totals']}, meta tensors "
+                             f"{meta['totals']}; ops that differ (card vs meta: calls, "
+                             f"flops, bytes): {diff[:12]}")
+    t = card["totals"]
+    sec = wall_ms / 1e3
+    row = dict(flops=t["flops"], bytes=t["bytes"], bytes_min=t["bytes_min"],
+               collectives=t["collectives"], kernel_calls=t["kernel_calls"],
+               device_ms=device_ms, device_ms_from=device_how, wall_ms=wall_ms,
+               tflops_per_s=t["flops"] / sec / 1e12, tb_per_s=t["bytes"] / sec / 1e12,
+               peak_tflops=PEAK_FLOPS[dtype_name] / 1e12, peak_tb_per_s=HBM_BYTES_PER_S / 1e12)
+    row["flops_share"] = row["tflops_per_s"] / row["peak_tflops"]
+    row["bytes_share"] = row["tb_per_s"] / row["peak_tb_per_s"]
+    log(f"  cost {name}: card == meta; flops={t['flops']:.6e} bytes={t['bytes']:.6e} "
+        f"bytes_min={t['bytes_min']:.6e} collective bytes={t['collectives']} | device "
+        f"{device_ms:.3f} ms ({device_how}), wall {wall_ms:.3f} ms | over the wall: "
+        f"{row['tflops_per_s']:.2f} TFLOP/s = {row['flops_share']:.4f} of "
+        f"{row['peak_tflops']:g} ({dtype_name}), {row['tb_per_s']:.3f} TB/s = "
+        f"{row['bytes_share']:.4f} of {row['peak_tb_per_s']:g} | {smi}")
+    return row
+
+
+def _serving_steps(cfg, device, params, seed):
+    """Phase 14's serving steps of ``cfg`` (starcoder2-3b) on ``device``
+    with ``params``: the longest prompt's prefill in its 8192 bucket (B2),
+    a paged decode step (B1) and a dense decode step (B3) of COST_SLOTS
+    slots at COST_DECODE_POS, from the batcher's page size and max_len;
+    {step name: a call of it}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.decoder import DecoderLM
+
+    model = DecoderLM(cfg)
+    B, L = COST_SLOTS, COST_MAX_LEN
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, L)).astype(np.int32))
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, 1)).astype(np.int32))
+    pos = torch.tensor(COST_DECODE_POS)
+    pages = (torch.from_numpy(rng.permutation(B * (L // PAGE))) + 2).reshape(B, -1).int()
+    pools = model.init_paged_cache(2 + B * (L // PAGE), PAGE, device=device)
+    cache = model.init_cache(B, L, device=device)
+    t, p, tab, pr = (x.to(device) for x in (tok, pos, pages, prompt))
+
+    def inference(fn):
+        def run():
+            with torch.inference_mode():
+                fn()
+        return run
+
+    return {f"{cfg.name} prefill": inference(lambda: model.prefill(
+                params, tokens=pr, max_len=L, true_len=LONG_PROMPT)),
+            f"{cfg.name} paged_decode": inference(lambda: model.decode_step_paged(
+                params, pools, tokens=t, pos_vec=p, pages=tab)),
+            f"{cfg.name} dense_decode": inference(lambda: model.decode_step(
+                params, cache, tokens=t, pos=p))}
+
+
+def _serving_card(cfg, params, dev, seed):
+    """Phase 14's serving steps on the card: {step: (count, device ms by CUDA
+    events, wall ms)}, each counted once, then timed once."""
+    return {name: (_count_dict(_counted(run)), *_timed_step(run))
+            for name, run in _serving_steps(cfg, dev, params, seed).items()}
+
+
+def train_runs():
+    """Phase 5's runs: (config, global batch rows, sequence length,
+    revocations)."""
+    from repro_torch.configs import get_config
+
+    return ((get_config(RWKV_ARCH), TRAIN_BATCH, TRAIN_SEQ, {1: 1}),
+            (get_config(JAMBA_ARCH).replace(**JAMBA_BLOCK), TRAIN_BATCH_JAMBA,
+             TRAIN_SEQ_JAMBA, {}))
+
+
+def cost_meta_counts(seed):
+    """{step: count} of phase 14's steps on meta tensors: starcoder2-3b's
+    serving steps on the model's meta tree, and a train step of each phase
+    5 run on the optimizer's meta state (the trainer's own abstract state)
+    and the same host batch."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticBatches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.decoder import DecoderLM
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import constant_schedule
+
+    cfg = get_config(ARCH)
+    out = {name: _count_dict(_counted(run)) for name, run in _serving_steps(
+        cfg, torch.device("meta"), DecoderLM(cfg).init_shape(), seed).items()}
+    for cfg, rows, seq, _ in train_runs():  # as train_phase builds them
+        model = DecoderLM(cfg)
+        opt = AdamW(lr=constant_schedule(1e-4), moments_dtype=cfg.opt_moments_dtype)
+        batch = SyntheticBatches(cfg, rows, seq, seed=seed).batch(TRAIN_STEPS)
+        state, step = opt.init_state(model.init_shape()), make_train_step(model, opt)
+        out[f"{cfg.name} train"] = _count_dict(_counted(lambda: step(state, batch)))
+    return out
+
+
+def _meta_counts_main(argv):
+    """Phase 14's meta counts in a process of their own, started with the
+    run (``cost_meta_start``): ``cost_meta_counts``, then phase 13's
+    deepseek-coder-33b cp_fsdp step on a mesh of a fake process group
+    (process-global) seen from one rank (a rank's local shards, and so its
+    attention's visible pairs under context parallelism, depend on its
+    place in the mesh), run once to fill DTensor's sharding-propagation
+    cache (see ``dryrun.trace_cell``) and counted. Writes {step: count,
+    "mesh": count} as JSON."""
+    t0 = time.perf_counter()
+    spec = json.loads(argv)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    torch.set_num_threads(1)
+    out = cost_meta_counts(spec["seed"]) if spec["steps"] else {}
+    shape = tuple(spec["mesh"])
+    dryrun._fake_group(math.prod(shape), spec["rank"])
+    run = dryrun.cell_step(DEEPSEEK_ARCH, "train_4k", make_smoke_mesh(shape),
+                           overrides=COST_MESH_TRAIN, seq_len=MESH_TRAIN_SEQ,
+                           global_batch=MESH_TRAIN_BATCH)
+    run()
+    out["mesh"] = _count_dict(_counted(run))
+    out["seconds"] = time.perf_counter() - t0
+    pathlib.Path(spec["out"]).write_text(json.dumps(out))
+
+
+def cost_meta_start(seed, mesh=(1, 1), rank=0, steps=True):
+    """Start ``_meta_counts_main`` (one torch thread: it shares the host
+    with the run); returns (process, its output file's directory)."""
+    import os
+
+    out = tempfile.TemporaryDirectory(prefix="chip_smoke_meta_")
+    spec = json.dumps(dict(seed=seed, mesh=list(mesh), rank=rank, steps=steps,
+                           out=f"{out.name}/meta.json"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke._meta_counts_main({spec!r})"],
+        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1",
+                           PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "src")])),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())  # a failed run stops it
+    return proc, out
+
+
+def cost_meta_result(started):
+    """The meta counts of ``cost_meta_start``'s process (waited for)."""
+    proc, out = started
+    text, _ = proc.communicate(timeout=600)
+    with out:
+        if proc.returncode != 0:
+            raise AssertionError(f"the meta counts failed:\n{text[-4000:]}")
+        return json.loads(pathlib.Path(out.name, "meta.json").read_text())
+
+
+def _cost_cell_card(dev, seed, mesh):
+    """Phase 13's deepseek-coder-33b cp_fsdp step on ``mesh`` (NCCL ranks),
+    run once to fill DTensor's sharding-propagation cache (see
+    ``dryrun.trace_cell``), then counted once and timed once: (count,
+    device ms by CUDA events, wall ms)."""
+    import torch
+
+    from repro_torch.launch.dryrun import cell_step
+
+    run = cell_step(DEEPSEEK_ARCH, "train_4k", mesh, overrides=COST_MESH_TRAIN,
+                    seq_len=MESH_TRAIN_SEQ, global_batch=MESH_TRAIN_BATCH, device=dev,
+                    seed=seed)
+    run()
+    card = _count_dict(_counted(run))
+    device_ms, wall_ms = _timed_step(run)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return card, device_ms, wall_ms
+
+
+# --------------------------------------------------------------------------
 # phase 13: the port on a DeviceMesh (one NCCL rank), against the meshless path
 
 MESH_BUDGET_S = 90.0
 DEEPSEEK_ARCH = "deepseek-coder-33b"
 MESH_TRAIN = dict(num_layers=2)  # 2 of 62 layers: 1.52 B params, ~18 GB with f32 moments
 MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 4096
+# phase 14's step in phase 13: the cp_fsdp run's config (one row a microbatch)
+COST_MESH_TRAIN = dict(MESH_TRAIN, num_microbatches=MESH_TRAIN_BATCH)
 MESH_DECODE = dict(num_layers=1)  # mixtral-8x22b, 1 of 56 layers, every expert
 MESH_DECODE_B, MESH_DECODE_L, MESH_DECODE_POS = 8, 4096, 4000
 
@@ -3585,8 +3810,9 @@ def mesh_phase(dev, seed):
     those of the meshless step. The meshless runs come first, before the
     process group exists (the trainer trains on one card when there is
     none). NCCL failing to initialise, a DTensor reaching a kernel, or a
-    kernel failing fails the phase. Returns (the mesh runs' launches,
-    summary)."""
+    kernel failing fails the phase. (c) Phase 14's last step: the cp_fsdp
+    step on the mesh, counted and timed on the card (``_cost_cell_card``),
+    in ``summary["cost"]``. Returns (the mesh runs' launches, summary)."""
     import torch
     import torch.distributed as dist
 
@@ -3612,6 +3838,9 @@ def mesh_phase(dev, seed):
                       for name, cfg in runs.items()}
             mesh_decode = _mesh_decode(dev, seed, dcfg,
                                        make_smoke_mesh((1, 1), device_type="cuda"))
+            t_cost = time.perf_counter()
+            cost_card = _cost_cell_card(dev, seed, make_smoke_mesh((1, 1), device_type="cuda"))
+            t_cost = time.perf_counter() - t_cost
         finally:
             dist.destroy_process_group()
 
@@ -3647,6 +3876,7 @@ def mesh_phase(dev, seed):
                              f"plain {mplain}")
     for k, n in mcount.items():
         launches[k] = launches.get(k, 0) + n
+    summary["cost"], summary["cost_s"] = cost_card, t_cost
     summary["phase_s"] = time.perf_counter() - t_phase
     log(f"mesh phase: {summary['phase_s']:.1f} s")
     if summary["phase_s"] > MESH_BUDGET_S:
@@ -3767,6 +3997,7 @@ def mesh4_rank(rank, seed):
                                         MESH4_DECODE_POS, layout=None, extra=B == 8)
     out["moe"] = _mesh_decode(dev, seed, get_config(MIXTRAL_ARCH).replace(**MESH4_MOE),
                               mesh)
+    out["cost"] = _cost_cell_card(dev, seed, mesh)
     # the logits go back as a numpy array (a tensor would cross to the parent
     # by a handle into this process's memory, which ends with it); one rank's
     # are enough, as every rank gathers the same
@@ -3779,7 +4010,7 @@ def mesh4_rank(rank, seed):
     return out
 
 
-def mesh4_phase(seed):
+def mesh4_phase(seed, smi=""):
     """Phase 13 on MESH4_RANKS NCCL ranks, one card each (``--mesh-ranks
     4``), held to the meshless path on card 0, on the same seed: (a) phase
     13's two deepseek-coder-33b training runs (2 of 62 layers, TRAIN_STEPS
@@ -3801,7 +4032,12 @@ def mesh4_phase(seed):
     of a group of their own and, at the same time, on 4 gloo ranks on the
     host (after the timed runs, so those share the host with nothing): the
     same step and rank history, the first three losses within
-    ELASTIC_LOSS_TOL. Raises with fewer than MESH4_RANKS
+    ELASTIC_LOSS_TOL. (e) Phase 14's step on four ranks: phase 13's
+    cp_fsdp step (COST_MESH_TRAIN) on (2, 2), counted on each rank, its NCCL
+    collectives included, and held to the meta count of the step seen from
+    that rank of a fake 4-rank group (a process of its own a rank, started
+    with the phase).
+    Raises with fewer than MESH4_RANKS
     cards, and when the phase takes more than MESH4_BUDGET_S. Returns the
     summary."""
     import torch
@@ -3822,6 +4058,9 @@ def mesh4_phase(seed):
     log(f"mesh phase on {MESH4_RANKS} NCCL ranks: train {list(runs)} on {MESH4_SHAPES}; "
         f"{DEEPSEEK_ARCH} {MESH4_DECODE} decode of {MESH4_DECODE_ROWS} rows over "
         f"{MESH4_DECODE_L} slots; {MIXTRAL_ARCH} {MESH4_MOE} decode_ws; elastic 4 -> 2 -> 4")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh4_")
+    metas = [cost_meta_start(seed, mesh=(2, 2), rank=r, steps=False)
+             for r in range(MESH4_RANKS)]
     plain = {name: _mesh_train_run(dev, seed, cfg, extra="bf16" not in name)
              for name, (cfg, _) in runs.items()}
     plain_decode = {B: _mesh_decode(dev, seed, dcfg, None, B, MESH4_DECODE_L,
@@ -3829,7 +4068,6 @@ def mesh4_phase(seed):
                     for B in MESH4_DECODE_ROWS}
     plain_moe = _mesh_decode(dev, seed, mcfg, None)
     t_plain = time.perf_counter() - t_phase
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh4_")
     for sub in ("gloo", "nccl", "elastic"):  # one FileStore a group
         pathlib.Path(tmp.name, sub).mkdir()
     got = Ranks(mesh4_rank, MESH4_RANKS, (seed,), store_dir=f"{tmp.name}/nccl",
@@ -3888,6 +4126,13 @@ def mesh4_phase(seed):
                     or not run[3].get(collective)):
                 raise AssertionError(f"mesh4 decode {key} rank {r}: launches {run[1]}, "
                                      f"plain {run[2]}, collectives {run[3]}")
+    summary["cost"] = [
+        cost_row(f"{DEEPSEEK_ARCH} cp_fsdp train on (2, 2), rank {r}", card,
+                 cost_meta_result(meta)["mesh"], device_ms, wall_ms, "bfloat16", smi)
+        for r, ((card, device_ms, wall_ms), meta) in enumerate(
+            zip((x["cost"] for x in got), metas))]
+    if not summary["cost"][0]["collectives"]:
+        raise AssertionError("mesh4 cost: the (2, 2) step counted no collective bytes")
     # the elastic run in a group of its own, after the measurements above
     # are logged, with a short collective timeout: a rank that waits on one
     # the others never join fails the run in a minute and a half, and
@@ -3967,6 +4212,8 @@ def main(argv=None):
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
+    meta_counts = (None if args.jamba_grad_study or args.mesh_ranks
+                   else cost_meta_start(args.seed))  # phase 14's, beside the run
     libs = _build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s (nvcc "
         f"{' '.join(_build.NVCC_FLAGS)})")
@@ -3978,7 +4225,7 @@ def main(argv=None):
         log(f"jamba gradient study done: {smi}; total {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.mesh_ranks:
-        mesh4 = mesh4_phase(args.seed)
+        mesh4 = mesh4_phase(args.seed, smi)
         log(f"mesh on {MESH4_RANKS} NCCL ranks held to one card in "
             f"{mesh4['phase_s']:.1f} s; total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"mesh4": {**mesh4, "card": smi}}, default=float))
@@ -3998,7 +4245,10 @@ def main(argv=None):
     from repro_torch.configs import get_config
 
     jamba = get_config(JAMBA_ARCH)
-    launches, _ = serving_phase(dev, args.seed, get_config(ARCH), STARCODER_LAYOUTS)
+    launches, summary = serving_phase(dev, args.seed, get_config(ARCH), STARCODER_LAYOUTS,
+                                      cost=True)
+    cards = {name: (*got, "CUDA events") for name, got in summary["cost"].items()}
+    cost_s = [summary["cost_s"]]
     by_path = {"serving": dict(launches)}
     for cfg, layouts in ((get_config(RWKV_ARCH), RWKV_LAYOUTS),
                          (jamba.replace(**JAMBA_SERVE), JAMBA_LAYOUTS)):
@@ -4009,10 +4259,10 @@ def main(argv=None):
     worst = max(f32_phase(dev, args.seed, cfg) for cfg in (
         get_config(ARCH), get_config(RWKV_ARCH), jamba.replace(**JAMBA_BLOCK)))
     by_path["training"] = {name: 0 for name in launches}
-    for cfg, rows_seq, preempt in (
-            (get_config(RWKV_ARCH), (TRAIN_BATCH, TRAIN_SEQ), {1: 1}),
-            (jamba.replace(**JAMBA_BLOCK), (TRAIN_BATCH_JAMBA, TRAIN_SEQ_JAMBA), {})):
-        more, _ = train_phase(dev, args.seed, cfg, *rows_seq, preempt)
+    for cfg, n_rows, seq, preempt in train_runs():
+        more, summary = train_phase(dev, args.seed, cfg, n_rows, seq, preempt, cost=True)
+        cards[f"{cfg.name} train"] = (*summary["cost"], "profiler busy time of one step")
+        cost_s.append(summary["cost_s"])
         for name, n in more.items():
             launches[name] += n
             by_path["training"][name] += n
@@ -4038,6 +4288,22 @@ def main(argv=None):
     for name, n in moe_launches.items():
         launches[name] += n
     mesh_launches, mesh = mesh_phase(dev, args.seed)
+    cards[COST_MESH] = (*mesh.pop("cost"), "CUDA events")
+    cost_s.append(mesh.pop("cost_s"))
+    t0 = time.perf_counter()
+    metas = cost_meta_result(meta_counts)
+    metas[COST_MESH] = metas.pop("mesh")
+    cost_s.append(time.perf_counter() - t0)  # waiting for the meta counts, if at all
+    log(f"phase 14: each counted step on the card against its meta count (the meta "
+        f"counts took {metas.pop('seconds'):.1f} s beside the run, waited {cost_s[-1]:.1f} s)")
+    cost = {name: cost_row(name, card, metas[name], dms, wms, "bfloat16", smi, how)
+            for name, (card, dms, wms, how) in cards.items()}  # every counted step is bf16
+    cost["seconds"] = sum(cost_s)
+    log(f"cost: {len(cost) - 1} steps counted on the card and on meta tensors in "
+        f"{cost['seconds']:.1f} s of the phases they ran in")
+    if cost["seconds"] > COST_BUDGET_S:
+        raise AssertionError(f"the counted steps took {cost['seconds']:.1f} s > "
+                             f"{COST_BUDGET_S} s")
     by_path["mesh"] = dict(mesh_launches)
     for name, n in mesh_launches.items():
         launches[name] += n
@@ -4097,7 +4363,8 @@ def main(argv=None):
         f"remat dots vs full {moe_training['remat']['worst_rel']:.3e}) in "
         f"{moe_training['phase_s']:.1f} s; mesh (deepseek-coder-33b training, "
         f"mixtral-8x22b decode_ws on a one-rank NCCL mesh, held to the meshless "
-        f"path) in {mesh['phase_s']:.1f} s; total "
+        f"path) in {mesh['phase_s']:.1f} s; step costs on the card equal to meta "
+        f"tensors' ({len(cost) - 1} steps) in {cost['seconds']:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"fleet": {**fleet, "card": smi}}))
     print(json.dumps({"serving_fleet": {**serving_fleet, "card": smi}}, default=float))
@@ -4106,6 +4373,7 @@ def main(argv=None):
     print(json.dumps({"families": {**families, "card": smi}}, default=float))
     print(json.dumps({"moe_training": {**moe_training, "card": smi}}, default=float))
     print(json.dumps({"mesh": {**mesh, "card": smi}}, default=float))
+    print(json.dumps({"cost": {**cost, "card": smi}}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,8 @@ REQUIRED_SERIES = {
     "serving": ("short_waits", "active_transients", "batch_occupancy"),
     "serving_jax": ("short_waits", "active_transients", "batch_occupancy",
                     "event_counts"),
+    "serving_torch": ("short_waits", "active_transients", "batch_occupancy",
+                      "event_counts"),
 }
 
 #: keys ``meta["obs"]`` must carry on a serving_jax result (the
@@ -95,13 +97,14 @@ def validate_run_result(rr: "RunResult") -> list:
             problems.append(f"empty series {name!r}")
     if rr.seed is None:
         problems.append("seed (trace provenance) not set")
-    if rr.engine in ("des", "serving", "serving_jax") and rr.sim_seed is None:
+    if rr.engine in ("des", "serving", "serving_jax", "serving_torch") \
+            and rr.sim_seed is None:
         problems.append("sim_seed (engine provenance) not set")
     if not rr.config:
         problems.append("resolved config missing")
     if rr.wall_time_s < 0:
         problems.append(f"negative wall_time_s {rr.wall_time_s}")
-    if rr.engine == "serving_jax":
+    if rr.engine in ("serving_jax", "serving_torch"):
         if "fleet_spec" not in rr.meta:
             problems.append("serving_jax result without meta['fleet_spec'] "
                             "provenance")

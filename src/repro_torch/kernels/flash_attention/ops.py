@@ -17,9 +17,18 @@ saves q, k, v, the output and (m, l); its backward
 (``flash_attention_bwd_chunked``, the twin of ``_flash_jnp_bwd``) loops
 over k chunks and, inside, q chunks, recomputing one block's probabilities
 at a time from (m, l), so no (Sq, Sk) tensor ever exists.
+
+``flash_attention_cost`` is B2's work, one op with or without statistics
+(``parallel.cost``): 4 operations a head and head element for each
+(query, key) pair the mask lets through, and q, k, v and the outputs each
+moved once. A ``meta`` tensor takes the plain versions, and their output
+takes B2's layout (``kernel_layout``), so a step runs the same ops around
+the op on the card, on the CPU and on ``meta`` tensors.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -28,6 +37,49 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, allowed, attention_ref,
                                                     block_mask, chunk_pairs,
                                                     chunked_attention_ref)
+from repro_torch.parallel.cost import Cost, acc_dtype, kernel_op, nbytes, tensor_bytes
+
+
+@lru_cache(maxsize=256)
+def visible_pairs(Sq, Sk, causal=True, window=0, prefix_len=0, q_offset=0) -> int:
+    """The (query, key) pairs ``allowed`` lets through, counted row by row
+    from the mask's rule (no mask is built)."""
+    pre = min(prefix_len, Sk) if prefix_len and prefix_len > 0 else 0
+    total = 0
+    for p in range(q_offset, q_offset + Sq):
+        hi = min(Sk - 1, p) if causal else Sk - 1
+        lo = max(0, p - window + 1) if window and window > 0 else 0
+        base = max(0, hi - lo + 1)
+        inside = max(0, min(pre - 1, hi) - lo + 1) if base else 0
+        total += base + pre - inside
+    return total
+
+
+def flash_attention_cost(q, k, v, *, causal=True, window=0, prefix_len=0, q_offset=0,
+                         stats=False, **_):
+    """B2's work at these shapes and mask arguments: flops and bytes
+    (q, k, v read once; o, and with ``stats`` the rows' m and l, written
+    once). From shapes and static arguments only."""
+    B, H, Sq, hd = q.shape
+    pairs = visible_pairs(Sq, k.shape[2], causal, window, prefix_len, q_offset)
+    out = nbytes(q.shape, q.dtype) + (2 * nbytes((B, H, Sq), acc_dtype(q)) if stats else 0)
+    return Cost(4.0 * B * H * hd * pairs, tensor_bytes(q, k, v) + out)
+
+
+def kernel_layout(o):
+    """``o`` (B,H,Sq,hd) as B2 writes it: a (B,H,Sq,hd) view of (B,Sq,H,hd)
+    storage. The plain versions' outputs take this layout too, so the ops
+    after attention (and their backward) are the same on every device."""
+    B, H, Sq, hd = o.shape
+    return torch.empty((B, Sq, H, hd), dtype=o.dtype, device=o.device).transpose(1, 2) \
+        .copy_(o)
+
+
+def _fwd(q, k, v, kw):
+    with kernel_op("flash_attention", flash_attention_cost, q, k, v, **kw):
+        if q.is_cuda:
+            return flash_attention_fwd(q, k, v, **kw)
+        return kernel_layout(attention_ref(q, k, v, **kw))
 
 
 def flash_attention_bwd(q, k, v, do, *, causal=True, window=0, softcap=0.0,
@@ -70,10 +122,9 @@ def flash_attention_bwd(q, k, v, do, *, causal=True, window=0, softcap=0.0,
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kw):
-        fwd = flash_attention_fwd if q.is_cuda else attention_ref
         ctx.save_for_backward(q, k, v)
         ctx.kw = kw
-        return fwd(q, k, v, **kw)
+        return _fwd(q, k, v, kw)
 
     @staticmethod
     def backward(ctx, do):
@@ -87,12 +138,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     refuse_dtensor("flash_attention", q, k, v)
     kw = dict(causal=causal, window=window, softcap=softcap,
               prefix_len=prefix_len, q_offset=q_offset)
-    if q.device.type not in ("cuda", "cpu"):
+    if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _Flash.apply(q, k, v, kw)
-    fwd = flash_attention_fwd if q.is_cuda else attention_ref
-    return fwd(q, k, v, **kw)
+    return _fwd(q, k, v, kw)
 
 
 def flash_attention_bwd_chunked(q, k, v, out, m, l, do, *, chunk_q, chunk_k,
@@ -143,11 +193,14 @@ def flash_attention_bwd_chunked(q, k, v, out, m, l, do, *, chunk_q, chunk_k,
 class _FlashVJP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kw, chunks):
-        if q.is_cuda:
-            out, m, l = flash_attention_fwd(q, k, v, **kw, stats=True)
-        else:
-            out, m, l = chunked_attention_ref(q, k, v, chunk_q=chunks[0],
-                                              chunk_k=chunks[1], **kw)
+        with kernel_op("flash_attention_stats", flash_attention_cost, q, k, v, **kw,
+                       stats=True):
+            if q.is_cuda:
+                out, m, l = flash_attention_fwd(q, k, v, **kw, stats=True)
+            else:
+                out, m, l = chunked_attention_ref(q, k, v, chunk_q=chunks[0],
+                                                  chunk_k=chunks[1], **kw)
+                out = kernel_layout(out)
         ctx.save_for_backward(q, k, v, out, m, l)
         ctx.kw, ctx.chunks = kw, chunks
         return out
@@ -167,6 +220,6 @@ def flash_attention_vjp(q, k, v, *, chunk_q, chunk_k, causal=True, window=0,
     refuse_dtensor("flash_attention_vjp", q, k, v)
     kw = dict(causal=causal, window=window, softcap=softcap,
               prefix_len=prefix_len, q_offset=q_offset)
-    if q.device.type not in ("cuda", "cpu"):
+    if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"flash_attention_vjp: unsupported device {q.device}")
     return _FlashVJP.apply(q, k, v, kw, (int(chunk_q), int(chunk_k)))

@@ -26,22 +26,25 @@ all-reduces of (batch, heads) and (batch, heads, head_dim + 1) f32 values
 a layer (``models.attention._mesh_attention``), so no layer's cache is
 gathered.
 
-``--trace`` also runs the cell's step once, on meta DTensors laid out by the
-cell's rules, and records ``flops_per_device`` (``torch.utils.flop_counter.
-FlopCounterMode`` over one rank's local shards) and ``collectives`` (the
-count of each collective op, ``CommDebugMode``). On meta tensors the model
-runs its plain versions of the kernels (``build_model(cfg, plain=True)``). A production cell's trace runs
-the full-size step op by op on meta tensors; ``--smoke`` traces the arch's
-smoke config instead, and ``--mesh-shape 2,4`` a small mesh.
+``--trace`` also runs the cell's step on meta DTensors laid out by the
+cell's rules (once uncounted, see ``trace_cell``, then once under
+``parallel.cost.CostMode``) and records what one rank's
+local shards cost in that step, under the reference's names:
+``flops_per_device``, ``bytes_per_device``, ``bytes_min_per_device``,
+``collectives`` (wire bytes by kind, ``total``, ``total_native`` and
+``top_ops``), ``collective_counts`` (the count of each collective op) and
+``top_dots``. The model is the one a user runs (``build_model(cfg)``): on
+meta tensors each kernel op takes its plain version and counts by its own
+formula, as on the card. A production cell's trace runs the full-size step
+op by op on meta tensors; ``--smoke`` traces the arch's smoke config
+instead, and ``--mesh-shape 2,4`` a small mesh.
 
 The reference's fields that only XLA has get no twin: ``t_lower_s``,
 ``t_compile_s``, the ``xla_*`` cost analysis, the memory analysis
-(``argument/output/temp/generated_code_size_in_bytes``), and the bytes and
-collectives parsed from the compiled HLO (``flops_per_device``,
-``bytes_per_device``, ``bytes_min_per_device``, ``collectives``,
-``top_dots``, ``hlo_bytes``). Those are TPU lowerings; they are no reference
-for anything the port measures, and the traced counts here are not
-comparable with them.
+(``argument/output/temp/generated_code_size_in_bytes``) and ``hlo_bytes``.
+The traced counts follow ``repro.parallel.hlo``'s rules, but XLA's
+rematerialisation and dot rewrites are its compiler's choices, so the
+ratio of a cell's count to the reference's is recorded, not held to 1.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all --mesh both
@@ -178,53 +181,95 @@ def build_cell(arch: str, shape_name: str, mesh, *, layout=None, overrides=None,
 # traced step on meta DTensors
 
 
-def trace_cell(arch: str, shape_name: str, mesh, *, layout=None, overrides=None,
-               smoke: bool = False, seq_len=None, global_batch=None) -> dict:
-    """Run the cell's step once on meta DTensors laid out on ``mesh`` (a
-    ``DeviceMesh`` of the current process group). Returns the FLOPs of one
-    rank's local shards and the count of each collective op."""
+def _materialize(tree, device, seed: int, vocab: int):
+    """``tree``'s meta leaves as tensors on ``device``, seeded: integer
+    leaves uniform in [1, vocab), float leaves standard normal (the same on
+    every rank)."""
     import torch
-    from torch.distributed.tensor.debug import CommDebugMode
-    from torch.utils.flop_counter import FlopCounterMode
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def leaf(t):
+        if t.dtype.is_floating_point:
+            return torch.randn(t.shape, generator=gen, device=device).to(t.dtype)
+        return torch.randint(1, vocab, t.shape, generator=gen, device=device).to(t.dtype)
+
+    return {k: leaf(t) for k, t in tree.items()}
+
+
+def cell_step(arch: str, shape_name: str, mesh, *, layout=None, overrides=None,
+              smoke: bool = False, seq_len=None, global_batch=None, device="meta",
+              seed: int = 0):
+    """The cell's step laid out on ``mesh`` (a ``DeviceMesh`` of the current
+    process group), ready to run: returns ``run``, which takes one step
+    (a train step, a prefill or a decode step) on DTensors on ``device``.
+    On ``meta`` nothing is allocated; on a real device the params are the
+    port's seeded init and the batch seeded, the same on every rank."""
+    import torch
 
     from repro_torch.launch.specs import batch_partition, batch_struct, fix_divisibility
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import build_model
     from repro_torch.parallel import use_sharding_ctx
     from repro_torch.parallel.distribute import distribute_tree
     from repro_torch.parallel.layouts import cache_specs, param_specs, to_shardings
 
     cfg, shape, B, model, rules = _model_and_rules(arch, shape_name, mesh, layout,
                                                    overrides, smoke, global_batch)
-    model = build_model(cfg, plain=True)  # meta tensors take the plain versions
     S = seq_len or shape.seq_len
+    meta = str(device) == "meta"
     params = model.init_shape()
     psh = to_shardings(param_specs(params, mesh, rules), mesh)
+    if not meta:
+        params = model.init(torch.Generator(device=device).manual_seed(seed), device=device)
     bstruct = batch_struct(cfg, shape.kind, B, S)
     bsh = to_shardings(fix_divisibility(batch_partition(cfg, shape.kind, rules),
                                         bstruct, mesh), mesh)
-    flops = FlopCounterMode(display=False)
-    comm = CommDebugMode()
+    if not meta:
+        bstruct = _materialize(bstruct, device, seed + 1, cfg.vocab_size)
     with use_sharding_ctx(mesh, rules):
         params = distribute_tree(params, psh)
         batch = distribute_tree(bstruct, bsh)
-        with comm, flops:
+        if shape.kind == "train":
+            opt = _opt(cfg)
+            state = opt.init_state(params)
+            step = make_train_step(model, opt)
+        elif shape.kind == "decode":
+            cache = model.init_cache(B, S, device=device)
+            cache = distribute_tree(cache, to_shardings(
+                cache_specs(model, mesh, rules, B, S, shapes=cache), mesh))
+
+    def run():
+        with use_sharding_ctx(mesh, rules):
             if shape.kind == "train":
-                opt = _opt(cfg)
-                state = opt.init_state(params)
-                make_train_step(model, opt)(state, batch)
-            elif shape.kind == "prefill":
-                with torch.no_grad():
-                    model.prefill(params, max_len=S, **batch)
-            else:
-                cache = model.init_cache(B, S, device="meta")
-                cache = distribute_tree(cache, to_shardings(
-                    cache_specs(model, mesh, rules, B, S, shapes=cache), mesh))
-                with torch.no_grad():
-                    model.decode_step(params, cache, pos=S - 1, **batch)
-    counts = {str(op).split(".")[-1]: int(n) for op, n in comm.get_comm_counts().items()}
-    return {"flops_per_device": float(flops.get_total_flops()),
-            "collectives": dict(sorted(counts.items()))}
+                return step(state, batch)
+            with torch.no_grad():
+                if shape.kind == "prefill":
+                    return model.prefill(params, max_len=S, **batch)
+                return model.decode_step(params, cache, pos=S - 1, **batch)
+
+    return run
+
+
+def trace_cell(arch: str, shape_name: str, mesh, **kw) -> dict:
+    """Run the cell's step (``cell_step``; meta DTensors by default) under
+    ``parallel.cost.CostMode``. Returns what one rank's local shards cost
+    in it, under the reference dry-run's names.
+
+    The step runs once uncounted first: DTensor propagates an op's
+    sharding by running it on fake tensors the first time it meets the op's
+    signature, and caches the result; the warm run fills that cache, so the
+    counted run holds the rank's own ops alone, as a step in a running
+    program does."""
+    from repro_torch.parallel.cost import CostMode
+
+    run = cell_step(arch, shape_name, mesh, **kw)
+    run()
+    with CostMode() as cost:
+        run()
+    a = cost.summary()
+    return {"flops_per_device": a["flops"], "bytes_per_device": a["bytes"],
+            "bytes_min_per_device": a["bytes_min"], "collectives": a["collectives"],
+            "collective_counts": a["collective_counts"], "top_dots": a["top_dots"]}
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +296,14 @@ def _parse_overrides(pairs):
     return out or None
 
 
-def _fake_group(n: int):
+def _fake_group(n: int, rank: int = 0):
+    """The ``"fake"`` process group of ``n`` ranks, seen from ``rank``."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=n)
 
 
 def main(argv=None) -> int:
@@ -280,7 +326,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=0,
                     help="override the shape's global batch")
     ap.add_argument("--trace", action="store_true",
-                    help="also run the step on meta DTensors: FLOPs, collectives")
+                    help="also run the step on meta DTensors: FLOPs, bytes, "
+                         "collective bytes")
     ap.add_argument("--out-dir", default=None)
     ap.add_argument("--set", dest="overrides", action="append", default=[],
                     help="cfg override key=value (repeatable)")
@@ -323,8 +370,10 @@ def main(argv=None) -> int:
                     path.parent.mkdir(parents=True, exist_ok=True)
                     path.write_text(json.dumps(meta, indent=1))
                     print(f"  OK state/dev={meta['state_bytes_per_device']:.6e} B"
-                          + (f" flops/dev={meta['flops_per_device']:.3e} "
-                             f"collectives={meta['collectives']}" if args.trace else ""),
+                          + (f" flops/dev={meta['flops_per_device']:.4e} bytes/dev="
+                             f"{meta['bytes_per_device']:.4e} collective bytes/dev="
+                             f"{meta['collectives']['total']:.4e} "
+                             f"counts={meta['collective_counts']}" if args.trace else ""),
                           flush=True)
                     n_ok += 1
                 except Exception:

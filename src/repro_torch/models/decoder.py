@@ -385,7 +385,7 @@ class DecoderLM:
                 raise NotImplementedError(
                     f"paged KV cache supports attention layers only, got "
                     f"mixer={spec.mixer!r} (use init_cache / the dense layout)")
-        device = resolve_device(device)
+        device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
         return [A.init_paged_entry(self.cfg, spec, n_phys_blocks, block_size,
                                    self.dtype, device, quant=quant)
                 for spec in self.layer_specs]

@@ -38,7 +38,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.common import act_fn, dense_init
 from repro_torch.models.config import ModelConfig
@@ -121,6 +120,14 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device):
 # routing + dispatch helpers; tokens come in groups, (G, T, d)
 
 
+def _one_hot(idx, E: int):
+    """``F.one_hot(idx, E)`` (int64) as one comparison. ``F.one_hot``
+    decomposes differently by device (a min/max check and a scatter on the
+    CPU, a scatter on the card, a comparison on ``meta`` tensors), so a
+    step's counted ops (``parallel.cost``) would depend on where it ran."""
+    return (idx[..., None] == torch.arange(E, device=idx.device)).long()
+
+
 def _top_k(probs, k: int):
     """``jax.lax.top_k`` over the last axis: largest first, the lower index
     first among equal values."""
@@ -141,7 +148,7 @@ def _aux_loss(probs, idx, E: int):
     """Switch-style load-balancing loss E * sum_e f_e * P_e of each group:
     probs (G, T, E), idx (G, T, k) -> (G,)."""
     G = idx.shape[0]
-    assign = F.one_hot(idx.reshape(G, -1), E).float()  # (G, T*k, E)
+    assign = _one_hot(idx.reshape(G, -1), E).float()  # (G, T*k, E)
     f = assign.mean(1)
     pmean = probs.mean(1)
     return E * (f * pmean).sum(-1)
@@ -166,7 +173,7 @@ def _dispatch(x2, idx, E: int, C: int):
     G, T, d = x2.shape
     k = idx.shape[-1]
     e_flat = idx.reshape(G, T * k)
-    onehot = F.one_hot(e_flat, E)  # (G, T*k, E)
+    onehot = _one_hot(e_flat, E)  # (G, T*k, E)
     prior = onehot.cumsum(1) - onehot
     pos_flat = prior.gather(2, e_flat[..., None])[..., 0]  # (G, T*k)
     keep = pos_flat < C
@@ -332,7 +339,7 @@ def _moe_smap(p, x, cfg: ModelConfig, mesh, rules):
         y = DTensor.from_local(y, mesh, ypl, run_check=False).redistribute(mesh, xpl)
     # the aux loss needs the globally averaged f_e and P_e (a mean of
     # products over shards is not the global product): average first
-    assign = F.one_hot(idx.reshape(-1), E).float().mean(0)
+    assign = _one_hot(idx.reshape(-1), E).float().mean(0)
     f = _pmean_all(assign, mesh)
     pm = _pmean_all(probs.reshape(-1, E).mean(0), mesh)
     aux = DTensor.from_local(E * (f * pm).sum(), mesh, [Replicate()] * mesh.ndim,

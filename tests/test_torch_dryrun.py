@@ -6,7 +6,8 @@ group at 256 or 512 ranks, which is process-global, so it runs in a
 subprocess here. Its static accounting must equal the reference's exactly,
 both fresh and as committed under ``artifacts/dryrun_torch/``; and a traced
 smoke cell on a fake (2, 4) mesh shows the collectives its layout implies:
-``all_to_all`` for expert-parallel MoE cells, ``all_gather`` for FSDP.
+``all_to_all`` for expert-parallel MoE cells, ``all_gather`` for FSDP, each
+kind with its bytes, beside the reference's other traced fields.
 """
 
 from __future__ import annotations
@@ -117,10 +118,19 @@ def test_traced_smoke_cell_shows_its_layouts_collectives(runs, arch, layout):
     out, procs = runs
     for p in procs[layout or ""]:
         _wait(p)
+    from repro_torch.parallel.cost import COLLECTIVES
+
     expect, absent = TRACES[(arch, layout)]
     cell = json.loads((out / (layout or "default") / "single"
                        / f"{arch}__train_4k.json").read_text())
     assert cell["n_devices"] == 8 and cell["flops_per_device"] > 0
-    assert cell["collectives"].get(expect, 0) > 0, cell["collectives"]
+    assert cell["bytes_per_device"] > cell["bytes_min_per_device"] > 0
+    assert cell["top_dots"] and all(d["flops"] > 0 for d in cell["top_dots"])
+    counts, coll = cell["collective_counts"], cell["collectives"]
+    assert counts.get(expect, 0) > 0, counts
     if absent:
-        assert absent not in cell["collectives"], cell["collectives"]
+        assert absent not in counts, counts
+    kinds = {COLLECTIVES[name] for name in counts}
+    assert all(coll[kind] > 0 for kind in kinds), coll
+    assert coll["total"] == coll["total_native"] == sum(coll[kind] for kind in kinds)
+    assert coll["top_ops"] and {t["op"] for t in coll["top_ops"]} <= kinds

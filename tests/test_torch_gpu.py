@@ -1592,3 +1592,144 @@ def test_train_elastic_example_wants_eight_cards(cuda):
         pytest.skip("this machine has the cards; the refusal is for fewer")
     with pytest.raises(RuntimeError, match="--device cpu"):
         train_elastic.main([])
+
+
+# ---------------------------------------------------------------- step cost
+# Each kernel op under ``parallel.cost.CostMode`` on the card: one call,
+# counted by its formula (``kernels/<name>/ops.py``), none of the kernel
+# wrapper's own ops (allocations, a backward's partial sums), and the same
+# count as the op on meta tensors, where it takes its plain version.
+
+
+def _cost_cases(dev):
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6_scan import ops as rops
+    from repro_torch.kernels.ssm_scan import ops as sops
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def f32(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    B, H, KV, S, hd = 2, 8, 2, 96, 64
+    flash = (f32(B, H, S, hd).bfloat16(), f32(B, KV, S, hd).bfloat16(),
+             f32(B, KV, S, hd).bfloat16())
+    flash_kw = dict(causal=True, window=40, prefix_len=5)
+    L = 80
+    dec = (f32(B, H, hd).bfloat16(), f32(B, L, KV, hd).bfloat16().transpose(1, 2),
+           f32(B, L, KV, hd).bfloat16().transpose(1, 2), torch.zeros(B, L, device=dev))
+    bs, P = 16, 5
+    paged = (dec[0], f32(2 + B * P, bs, KV, hd).bfloat16(), f32(2 + B * P, bs, KV, hd).bfloat16(),
+             (torch.arange(B * P, dtype=torch.int32, device=dev) + 2).reshape(B, P), dec[3])
+    Sx, Di, N = 20, 256, 16
+    ssm = (f32(B, Sx, Di), torch.rand((B, Sx, Di), generator=gen, device=dev),
+           -torch.rand((Di, N), generator=gen, device=dev) - 0.5, f32(B, Sx, N), f32(B, Sx, N),
+           f32(Di), f32(B, Di, N))
+    Hr, hr = 4, 64
+    rwkv = tuple(f32(B, Hr, Sx, hr).bfloat16() for _ in range(3)) + (
+        0.2 + 0.7 * torch.rand((B, Hr, Sx, hr), generator=gen, device=dev), f32(Hr, hr),
+        f32(B, Hr, hr, hr))
+    return {
+        "flash_attention": (fops.flash_attention, flash, flash_kw, fops.flash_attention_cost),
+        "flash_attention_stats": (
+            fops.flash_attention_vjp, flash, dict(flash_kw, chunk_q=32, chunk_k=32),
+            lambda *a, **kw: fops.flash_attention_cost(*a, **kw, stats=True)),
+        "decode_attention": (dops.decode_attention, dec, {}, dops.decode_attention_cost),
+        "decode_attention_stats": (dops.decode_attention, dec, dict(stats=True),
+                                   dops.decode_attention_cost),
+        "paged_decode_attention": (dops.paged_decode_attention, paged, {},
+                                   dops.paged_decode_attention_cost),
+        "ssm_scan": (sops.ssm_scan, ssm, {}, sops.ssm_scan_cost),
+        "rwkv6_scan": (rops.rwkv6_scan, rwkv, {}, rops.rwkv6_scan_cost),
+    }
+
+
+def _grad_args(op, args, device):
+    """``args`` on ``device``; B2 with statistics takes a q that needs a
+    gradient (its op is an autograd function)."""
+    out = tuple(a.to(device) for a in args)
+    if op == "flash_attention_stats":
+        out = (out[0].detach().clone().requires_grad_(),) + out[1:]
+    return out
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "flash_attention_stats",
+                                "decode_attention", "decode_attention_stats",
+                                "paged_decode_attention", "ssm_scan", "rwkv6_scan"])
+def test_kernel_op_cost_on_the_card_is_its_formula_and_its_meta_count(cuda, op):
+    from repro_torch.parallel.cost import CostMode
+
+    fn, args, kw, cost_fn = _cost_cases(cuda)[op]
+    counts = {}
+    for dev in ("cuda", "meta"):
+        a = _grad_args(op, args, dev)
+        reset_counts()
+        with CostMode() as cm:
+            fn(*a, **kw)
+        counts[dev] = cm
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES[op] == 1
+    cost = cost_fn(*_grad_args(op, args, "cuda"), **kw)
+    card = counts["cuda"]
+    assert card.kernel_calls == {op: 1}
+    assert (card.flops, card.bytes, card.bytes_min) == (cost.flops, cost.bytes, cost.bytes)
+    assert card.totals() == counts["meta"].totals()
+
+
+@pytest.mark.parametrize("op", ["ssm_scan", "rwkv6_scan"])
+def test_scan_backward_cost_on_the_card_is_its_formula_and_its_meta_count(cuda, op):
+    from repro_torch.kernels.rwkv6_scan import ops as rops
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.parallel.cost import CostMode
+
+    fn, args, _, _ = _cost_cases(cuda)[op]
+    counts = {}
+    for dev in ("cuda", "meta"):
+        live = [a.to(dev).detach().clone().requires_grad_() for a in args]
+        out = fn(*live)
+        grads = (torch.ones_like(out[0]), torch.zeros_like(out[1]))
+        reset_counts()
+        with CostMode() as cm:
+            torch.autograd.grad(out, live, grads)
+        counts[dev] = cm
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES[op + "_bwd"] == 1
+            if op == "ssm_scan":
+                starts = sops.ssm_scan_fwd(*args, save_states=True)[2]
+                cost = sops.ssm_scan_bwd_cost(*args[:6], grads[0], starts, grads[1])
+            else:
+                starts = rops.rwkv6_scan_fwd(*args, save_states=True)[2]
+                r, k, v, w, u, _ = args
+                cost = rops.rwkv6_scan_bwd_cost(r, k, v, w, grads[0], u, starts, grads[1])
+    card = counts["cuda"]
+    assert card.kernel_calls == {op + "_bwd": 1}
+    assert (card.flops, card.bytes_min) == (cost.flops, cost.bytes)
+    assert card.totals() == counts["meta"].totals()
+
+
+def test_serving_fleet_op_cost_on_the_card_is_its_formula_and_its_cpu_count(cuda):
+    """The fleet op has no meta route (its program reads host data); its
+    count on the card is its formula and the plain version's on the CPU."""
+    from repro_torch.kernels.serving_fleet import ops as fleet_ops
+    from repro_torch.parallel.cost import CostMode
+    from repro_torch.runtime import serving_torch as st
+    from repro_torch.runtime.serving import Request, ServingFleetConfig
+
+    cfg = ServingFleetConfig(n_replicas=2, max_transient=2, threshold=0.5,
+                             provisioning_delay=3.0, tick_s=1.0)
+    reqs = [Request(i, 3 * i, 2) for i in range(10)]
+    pin = np.zeros(60, int)
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        _, _, spec = st.run_workload(cfg, reqs, pin, 60, device=dev)
+        with CostMode() as cm:
+            st.run_workload(cfg, reqs, pin, 60, device=dev)
+        counts[dev] = cm
+    card = counts["cuda"]
+    assert card.kernel_calls == {"serving_fleet": 1}
+    assert card.flops == 0 and card.bytes_min == fleet_ops.fleet_bytes(spec, 1)
+    assert card.kernel_calls == counts["cpu"].kernel_calls
+    assert card.bytes_min == counts["cpu"].bytes_min

@@ -415,24 +415,33 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    torch.zeros(3, 16, 2, 32),
                                    torch.zeros(1, 1, dtype=torch.int32),
                                    torch.zeros(1, 16))
+    qm = q.to("meta")
     with pytest.raises(ValueError):
-        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+        flash_attention_fwd(qm, qm, qm)
+    assert flash_attention(qm, qm, qm).shape == q.shape  # meta: the plain version
     r = torch.zeros(1, 2, 16, 32)
     with pytest.raises(ValueError):
         rwkv6_scan_fwd(r, r, r, r, torch.zeros(2, 32), torch.zeros(1, 2, 32, 32))
     with pytest.raises(ValueError):
         rwkv6_scan_bwd(r, r, r, r, r, torch.zeros(2, 32),
                        torch.zeros(1, 2, 2, 32, 32), torch.zeros(1, 2, 32, 32))
+    # a meta tensor (a traced step) takes the plain version's outputs; the
+    # wrapper refuses it as it refuses a CPU tensor
     m = r.to("meta")
+    um, sm = torch.zeros(2, 32).to("meta"), torch.zeros(1, 2, 32, 32).to("meta")
     with pytest.raises(ValueError):
-        rwkv6_scan(m, m, m, m, torch.zeros(2, 32).to("meta"),
-                   torch.zeros(1, 2, 32, 32).to("meta"))
+        rwkv6_scan_fwd(m, m, m, m, um, sm)
+    y, sT = rwkv6_scan(m, m, m, m, um, sm)
+    assert y.is_meta and y.shape == r.shape and sT.shape == sm.shape
     x, A, bc, h0 = (torch.zeros(1, 4, 32), torch.zeros(32, 16),
                     torch.zeros(1, 4, 16), torch.zeros(1, 32, 16))
     with pytest.raises(ValueError):
         ssm_scan_fwd(x, x, A, bc, bc, torch.zeros(32), h0)
+    meta = tuple(t.to("meta") for t in (x, x, A, bc, bc, torch.zeros(32), h0))
     with pytest.raises(ValueError):
-        ssm_scan(*(t.to("meta") for t in (x, x, A, bc, bc, torch.zeros(32), h0)))
+        ssm_scan_fwd(*meta)
+    y, hT = ssm_scan(*meta)
+    assert y.is_meta and y.shape == x.shape and hT.shape == h0.shape
     with pytest.raises(ValueError):
         ssm_scan_bwd(x, x, A, bc, bc, torch.zeros(32), x, torch.zeros(1, 1, 32, 16), h0)
 

@@ -63,7 +63,7 @@ COPIES = (
     "workload/stats.py",
     "traces/__init__.py", "traces/synthetic.py",
     "configs/cloudcoaster.py",
-    "exp/__init__.py", "exp/results.py",
+    "exp/__init__.py",
     "runtime/serving.py",
 )
 
@@ -73,6 +73,22 @@ EDITED_COPIES = {
     "sched/scenarios.py": (
         ("JAX fluid simulator", "torch fluid simulator"),
         ("repro_torch.core.simjax import", "repro_torch.core.simtorch import"),
+    ),
+    # the port's program engine is gated as the reference's serving_jax is
+    # (the registry-parity rule of repro_torch.analysis flags it otherwise)
+    "exp/results.py": (
+        ('''    "serving_jax": ("short_waits", "active_transients", "batch_occupancy",
+                    "event_counts"),
+''', '''    "serving_jax": ("short_waits", "active_transients", "batch_occupancy",
+                    "event_counts"),
+    "serving_torch": ("short_waits", "active_transients", "batch_occupancy",
+                      "event_counts"),
+'''),
+        ('if rr.engine in ("des", "serving", "serving_jax") and rr.sim_seed is None:',
+         'if rr.engine in ("des", "serving", "serving_jax", "serving_torch") \\\n'
+         '            and rr.sim_seed is None:'),
+        ('    if rr.engine == "serving_jax":\n',
+         '    if rr.engine in ("serving_jax", "serving_torch"):\n'),
     ),
 }
 

@@ -159,10 +159,14 @@ def test_op_refuses_state_out_under_grad_and_other_devices():
         rwkv6_scan(r.requires_grad_(True), k, v, w, u, s0, state_out=s0)
     with torch.no_grad():  # serving: no gradient, the in-place write is fine
         rwkv6_scan(r, k, v, w, u, s0, state_out=s0.clone())
+    # a meta tensor (a traced step) takes the plain version's outputs, under
+    # autograd too; its in-place write is refused there as anywhere
     m = torch.zeros(1, 2, 4, 32, device="meta", requires_grad=True)
-    with pytest.raises(ValueError, match="device"):
-        rwkv6_scan(m, m, m, m, torch.zeros(2, 32, device="meta"),
-                   torch.zeros(1, 2, 32, 32, device="meta"))
+    um, sm = torch.zeros(2, 32, device="meta"), torch.zeros(1, 2, 32, 32, device="meta")
+    y, sT = rwkv6_scan(m, m, m, m, um, sm)
+    assert y.is_meta and y.shape == m.shape and y.requires_grad and sT.shape == sm.shape
+    with pytest.raises(ValueError, match="state_out"):
+        rwkv6_scan(m, m, m, m, um, sm, state_out=sm)
 
 
 # ------------------------------------------------------------------- model
