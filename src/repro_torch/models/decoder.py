@@ -45,6 +45,14 @@ reference does. An MoE layer routes all the tokens of a call as one group
 (capacity counts them all), or each batch row alone with
 ``decode_step(..., route_rows=True)``, the dense batcher's step (see
 ``repro_torch.models.mlp``).
+
+``tracer`` (a :class:`repro_torch.obs.trace.Tracer`, None by default, the
+batcher's) takes host-clock spans of the serving modes: ``model.prefill``
+and ``model.decode_step`` (either layout) around the call, and inside each
+``model.embed``, one ``model.layer`` a layer (``i``) holding its mixer
+(``model.attn`` or ``model.mamba``; an RWKV layer none) and its FFN
+(``model.mlp`` or ``model.moe``), and ``model.unembed``. The spans time
+the host: nothing inside them waits for the device.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from repro_torch.models import rwkv as R
 from repro_torch.models.common import (apply_norm, dense_init, embed_init,
                                        init_norm, softcap)
 from repro_torch.models.config import ModelConfig, block_structure
+from repro_torch.obs.trace import NO_SPAN
 from repro_torch.parallel import is_dtensor, logical, sharding_ctx, use_sharding_ctx
 from repro_torch.parallel.local import dense, local_call, mesh_ops, partial_where_split
 from repro_torch.tree import leaves
@@ -84,10 +93,11 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 class DecoderLM:
-    def __init__(self, cfg: ModelConfig, *, plain: bool = False):
+    def __init__(self, cfg: ModelConfig, *, plain: bool = False, tracer=None):
         """``plain=True`` runs attention through the model-level plain
         PyTorch math and the WKV and selective scans through their plain
-        versions, on any device (the yardstick for the kernel path)."""
+        versions, on any device (the yardstick for the kernel path).
+        ``tracer`` records the spans the module docstring lists."""
         unported = sorted(set(cfg.mixer_pattern) - {"attn", "rwkv", "mamba"})
         if unported:
             raise NotImplementedError(
@@ -98,6 +108,7 @@ class DecoderLM:
                              f"dtype={cfg.dtype} != param_dtype={cfg.param_dtype}")
         self.cfg = cfg
         self.plain = plain
+        self.tracer = tracer
         self.block_size, self.n_blocks, self.specs = block_structure(cfg)
         self.layer_specs = [self.specs[j] for _ in range(self.n_blocks)
                             for j in range(self.block_size)]
@@ -186,7 +197,7 @@ class DecoderLM:
 
     def _apply_layer(self, lp, x, spec, *, mode, positions=None, cache=None,
                      pos=None, max_len=None, true_len=None, pages=None,
-                     route_rows=False):
+                     route_rows=False, tracer=None):
         """Returns (x, new_cache, aux): aux is the layer's MoE
         load-balancing loss (an f32 scalar), None for a dense FFN."""
         cfg = self.cfg
@@ -196,42 +207,46 @@ class DecoderLM:
                 f"layers only, got mixer={spec.mixer!r}; use the dense path")
         if spec.mixer == "rwkv":
             return self._apply_rwkv_layer(lp, x, mode=mode, cache=cache) + (None,)
-        h = apply_norm(lp["norm1"], x, cfg)
-        if mode == "train":
-            new_cache = None
-            if spec.mixer == "mamba":
-                y = M.mamba_train(lp["mamba"], h, cfg, plain=self.plain)
-            else:
-                positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
-                y = A.attn_train(lp["attn"], h, cfg, spec, positions, plain=self.plain)
-        elif spec.mixer == "mamba":
-            if mode == "prefill":
-                y, new_cache = M.mamba_prefill(lp["mamba"], h, cfg, plain=self.plain)
-            else:
-                y, new_cache = M.mamba_decode(lp["mamba"], h, cache, cfg,
+        with (tracer.span("model.attn" if spec.mixer == "attn" else "model.mamba")
+              if tracer is not None else NO_SPAN):
+            h = apply_norm(lp["norm1"], x, cfg)
+            if mode == "train":
+                new_cache = None
+                if spec.mixer == "mamba":
+                    y = M.mamba_train(lp["mamba"], h, cfg, plain=self.plain)
+                else:
+                    positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+                    y = A.attn_train(lp["attn"], h, cfg, spec, positions, plain=self.plain)
+            elif spec.mixer == "mamba":
+                if mode == "prefill":
+                    y, new_cache = M.mamba_prefill(lp["mamba"], h, cfg, plain=self.plain)
+                else:
+                    y, new_cache = M.mamba_decode(lp["mamba"], h, cache, cfg,
+                                                  plain=self.plain)
+            elif mode == "prefill":
+                y, new_cache = A.attn_prefill(lp["attn"], h, cfg, spec, positions,
+                                              max_len=max_len, true_len=true_len,
                                               plain=self.plain)
-        elif mode == "prefill":
-            y, new_cache = A.attn_prefill(lp["attn"], h, cfg, spec, positions,
-                                          max_len=max_len, true_len=true_len,
-                                          plain=self.plain)
-        elif mode == "decode_paged":
-            y, new_cache = A.attn_decode_paged(lp["attn"], h, cache, cfg, spec,
-                                               pos, pages, plain=self.plain)
-        else:
-            y, new_cache = A.attn_decode(lp["attn"], h, cache, cfg, spec, pos,
-                                         plain=self.plain)
-        if cfg.post_norm:
-            y = apply_norm(lp["norm1_post"], y, cfg)
-        x = x + y
-        h = apply_norm(lp["norm2"], x, cfg)
-        aux = None
-        if spec.is_moe:
-            y, aux = F.apply_moe(lp["moe"], h, cfg, route_rows=route_rows)
-        else:
-            y = F.apply_mlp(lp["mlp"], h, cfg)
-        if cfg.post_norm:
-            y = apply_norm(lp["norm2_post"], y, cfg)
-        return x + y, new_cache, aux
+            elif mode == "decode_paged":
+                y, new_cache = A.attn_decode_paged(lp["attn"], h, cache, cfg, spec,
+                                                   pos, pages, plain=self.plain)
+            else:
+                y, new_cache = A.attn_decode(lp["attn"], h, cache, cfg, spec, pos,
+                                             plain=self.plain)
+            if cfg.post_norm:
+                y = apply_norm(lp["norm1_post"], y, cfg)
+            x = x + y
+        with (tracer.span("model.moe" if spec.is_moe else "model.mlp")
+              if tracer is not None else NO_SPAN):
+            h = apply_norm(lp["norm2"], x, cfg)
+            aux = None
+            if spec.is_moe:
+                y, aux = F.apply_moe(lp["moe"], h, cfg, route_rows=route_rows)
+            else:
+                y = F.apply_mlp(lp["mlp"], h, cfg)
+            if cfg.post_norm:
+                y = apply_norm(lp["norm2_post"], y, cfg)
+            return x + y, new_cache, aux
 
     def _apply_rwkv_layer(self, lp, x, *, mode, cache):
         """Prefill returns a new state; decode updates ``cache`` in place
@@ -295,10 +310,14 @@ class DecoderLM:
         return x, aux
 
     def _stack(self, params, x, mode, caches=None, **kw):
+        """The serving modes' stack, one ``model.layer`` span a layer."""
+        tracer = self.tracer
         new_caches = []
         for i, (lp, spec) in enumerate(zip(params["layers"], self.layer_specs)):
             entry = None if caches is None else caches[i]
-            x, nc, _ = self._apply_layer(lp, x, spec, mode=mode, cache=entry, **kw)
+            with (tracer.span("model.layer", i=i) if tracer is not None else NO_SPAN):
+                x, nc, _ = self._apply_layer(lp, x, spec, mode=mode, cache=entry,
+                                             tracer=tracer, **kw)
             new_caches.append(nc)
         return x, new_caches
 
@@ -458,13 +477,17 @@ class DecoderLM:
         length, prefix included). ``true_len`` marks a right-padded
         bucketed prompt: logits come from position ``true_len - 1`` and pad
         slots carry pos=-1."""
-        with mesh_ops(_first(tokens, embeds)):
-            x = self._embed_in(params, tokens, embeds, prefix_embeds)
+        tracer = self.tracer
+        with (tracer.span("model.prefill") if tracer is not None else NO_SPAN), \
+                mesh_ops(_first(tokens, embeds)):
+            with (tracer.span("model.embed") if tracer is not None else NO_SPAN):
+                x = self._embed_in(params, tokens, embeds, prefix_embeds)
             positions = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
             x, caches = self._stack(params, x, "prefill", positions=positions,
                                     max_len=max_len, true_len=true_len)
             last = x[:, -1:] if true_len is None else x[:, int(true_len) - 1:int(true_len)]
-            return self._unembed(params, last)[:, 0], caches
+            with (tracer.span("model.unembed") if tracer is not None else NO_SPAN):
+                return self._unembed(params, last)[:, 0], caches
 
     def decode_step(self, params, cache, *, tokens=None, embeds=None, pos,
                     route_rows=False):
@@ -474,21 +497,29 @@ class DecoderLM:
         or each row alone with ``route_rows`` (the reference's vmap of a
         one-row step, which its dense batcher runs). Returns (logits (B,V),
         caches)."""
-        with mesh_ops(_first(tokens, embeds)):
-            x = self._embed_in(params, tokens, embeds)
+        tracer = self.tracer
+        with (tracer.span("model.decode_step") if tracer is not None else NO_SPAN), \
+                mesh_ops(_first(tokens, embeds)):
+            with (tracer.span("model.embed") if tracer is not None else NO_SPAN):
+                x = self._embed_in(params, tokens, embeds)
             x, caches = self._stack(params, x, "decode", caches=cache, pos=pos,
                                     route_rows=route_rows)
-            return self._unembed(params, x)[:, 0], caches
+            with (tracer.span("model.unembed") if tracer is not None else NO_SPAN):
+                return self._unembed(params, x)[:, 0], caches
 
     def decode_step_paged(self, params, pools, *, tokens, pos_vec, pages):
         """One slot-batched decode step against paged pools. tokens: (B,1);
         pos_vec: (B,) per-slot positions; pages: (B,P) int32 page table.
         Pools update in place. Returns (logits (B,V), pools)."""
-        with mesh_ops(tokens):
-            x = self._embed_in(params, tokens)
+        tracer = self.tracer
+        with (tracer.span("model.decode_step") if tracer is not None else NO_SPAN), \
+                mesh_ops(tokens):
+            with (tracer.span("model.embed") if tracer is not None else NO_SPAN):
+                x = self._embed_in(params, tokens)
             x, pools = self._stack(params, x, "decode_paged", caches=pools,
                                    pos=pos_vec, pages=pages)
-            return self._unembed(params, x)[:, 0], pools
+            with (tracer.span("model.unembed") if tracer is not None else NO_SPAN):
+                return self._unembed(params, x)[:, 0], pools
 
 
 def _ce_sums(logits, labels, mask):

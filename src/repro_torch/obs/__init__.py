@@ -10,7 +10,10 @@ Three pieces, one observability spine (see ROADMAP "repro/obs"):
                ``runtime/serving_jax`` from its per-tick event-count series
                — one schema, so event streams diff across engines
   trace.py   — zero-cost-when-disabled span/counter tracer with Chrome
-               trace-event JSON export (open in Perfetto: ui.perfetto.dev)
+               trace-event JSON export (open in Perfetto: ui.perfetto.dev):
+               the fleet's engine ticks, and host-clock spans
+               (``Tracer.span``) inside the served path's batcher and
+               model step
   metrics.py — counters/gauges/histograms registry snapshotted into
                ``RunResult.meta["obs"]`` (jit-cache hit/miss, compile vs
                steady wall time around ``serving_jax.get_program``)

@@ -9,13 +9,26 @@ service is a complete span (``X``) on the replica lane, hedges are flow
 arrows (``s``/``f``) from the stuck primary's lane to the reserve replica,
 and fleet-wide queue depth / active transients are counter tracks (``C``).
 
-Zero-cost-when-disabled contract: engines hold ``tracer=None`` by default
-and guard each call site; a constructed ``Tracer(enabled=False)`` is also
-safe to call — every method returns before allocating anything (bounded by
-tests/test_obs.py's tracemalloc check).
+The served path (``runtime/batching.py``'s ``ContinuousBatcher``, and
+``models/decoder.py``'s ``DecoderLM``) records host-clock spans with
+:meth:`Tracer.span`: a context manager that writes one ``X`` event from
+``time.perf_counter()`` at entry to its value at exit. Each span carries
+its own ``id`` and its enclosing span's ``parent`` in ``args`` (``None``
+at the top), and a span that belongs to a request carries its ``rid``, so
+the spans of one request share it. Events stay in memory until
+:meth:`Tracer.to_dict` or :meth:`Tracer.export`.
 
-Times are engine ticks; ``tick_s`` scales them into the microsecond ``ts``
-the format requires.
+Zero-cost-when-disabled contract: engines hold ``tracer=None`` by default
+and guard each call site; a ``with`` site takes the guarded form
+``with (tracer.span(...) if tracer is not None else NO_SPAN):``, one check
+and no allocation while tracing is off. A constructed
+``Tracer(enabled=False)`` is also safe to call — every method returns
+before allocating anything (bounded by the tracemalloc check of
+tests/test_torch_batching_trace.py).
+
+Times are seconds scaled by ``tick_s`` into the microsecond ``ts`` the
+format requires: the fleet's engine ticks (``tick_s`` the tick's length),
+or the host clock's seconds (``tick_s=1.0``, the default) for spans.
 
 CLI — the CI smoke gate's trace schema check::
 
@@ -26,22 +39,52 @@ CLI — the CI smoke gate's trace schema check::
 from __future__ import annotations
 
 import json
+import time
+from contextlib import nullcontext
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-__all__ = ["Tracer", "trace_from_run_result", "validate_trace_events",
-           "validate_trace_file"]
+__all__ = ["NO_SPAN", "Tracer", "trace_from_run_result",
+           "validate_trace_events", "validate_trace_file"]
+
+NO_SPAN = nullcontext()
+"""The one context a guarded ``with`` site enters while its tracer is
+None (or disabled): shared, so tracing off allocates nothing."""
+
+
+class _Span:
+    __slots__ = ("tracer", "name", "args", "t0")
+
+    def __init__(self, tracer: Tracer, name: str, args: dict) -> None:
+        self.tracer, self.name, self.args = tracer, name, args
+
+    def __enter__(self) -> None:
+        tr = self.tracer
+        tr._last_id += 1
+        self.args["id"] = tr._last_id
+        self.args["parent"] = tr._open[-1]["id"] if tr._open else None
+        tr._open.append(self.args)
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        t1 = time.perf_counter()
+        tr = self.tracer
+        tr._open.pop()
+        tr.complete(self.name, self.t0, t1 - self.t0, args=self.args)
 
 
 class Tracer:
     """Trace-event collector. ``tick_s`` converts engine ticks to seconds
-    (ts is emitted in microseconds, per the trace-event spec)."""
+    (ts is emitted in microseconds, per the trace-event spec); host-clock
+    spans want ``tick_s=1.0``."""
 
-    __slots__ = ("enabled", "events", "_scale")
+    __slots__ = ("enabled", "events", "_scale", "_open", "_last_id")
 
     def __init__(self, *, tick_s: float = 1.0, enabled: bool = True) -> None:
         self.enabled = enabled
         self.events: List[dict] = []
         self._scale = float(tick_s) * 1e6
+        self._open: List[dict] = []  # the args of each span entered, not left
+        self._last_id = 0
 
     # -- metadata ---------------------------------------------------------
     def process_name(self, pid: int, name: str) -> None:
@@ -101,6 +144,22 @@ class Tracer:
         if args:
             ev["args"] = args
         self.events.append(ev)
+
+    # -- host-clock spans -------------------------------------------------
+    def span(self, name: str, **args):
+        """Context manager: one ``X`` event named ``name`` from
+        ``time.perf_counter()`` at entry to exit, ``args`` plus its ``id``
+        (from 1) and the ``id`` of the span open around it (``parent``)."""
+        if not self.enabled:
+            return NO_SPAN
+        return _Span(self, name, args)
+
+    def annotate(self, **args) -> None:
+        """Add ``args`` to the innermost open span (counts known only at
+        its end)."""
+        if not self.enabled or not self._open:
+            return
+        self._open[-1].update(args)
 
     # -- flows (hedge arrows) --------------------------------------------
     def flow_start(self, name: str, t: float, *, fid: int, pid: int = 0,

@@ -47,10 +47,21 @@ row.
 The port has no compiler cache to key; ``prefill_compiles`` counts distinct
 prefill buckets (one entry of ``_prefills`` each), the quantity the
 reference counts as ``batcher.prefill_compiles``.
+
+``tracer`` (a :class:`repro_torch.obs.trace.Tracer`, None by default) takes
+host-clock spans: ``batcher.submit`` (an instant: ``rid``, ``prompt_len``,
+``max_new``), ``batcher.step`` (``step``; ``n_admitted`` and ``n_active``
+at its end) around each ``step()``, and inside it ``batcher.admit``
+(``rid``, ``bucket``, ``pages``) around each admission, with
+``paging.scatter`` and ``batcher.first_token`` (the wait for the
+prefill's argmax) inside, and ``batcher.sync`` (the wait for the decode
+step's tokens). The model's own spans (``model.prefill``,
+``model.decode_step``) come from the ``DecoderLM`` given the same tracer.
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional, Tuple
@@ -60,6 +71,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import cache_len_for
+from repro_torch.obs.trace import NO_SPAN
 from repro_torch.optim.compress import quantize_int8
 from repro_torch.runtime.paging import (NULL_BLOCK, RESERVED_BLOCKS, TRASH_BLOCK,
                                         PageAllocator, PagedCacheOOM, pages_needed)
@@ -144,10 +156,6 @@ class GenRequest:
     finish_step: Optional[int] = None
     tokens: List[int] = field(default_factory=list)
 
-    @property
-    def wait(self) -> Optional[int]:
-        return None if self.start_step is None else self.start_step - self.arrival
-
 
 class ContinuousBatcher:
     """Fixed-slot continuous-batching engine over a real decoder model.
@@ -155,14 +163,15 @@ class ContinuousBatcher:
     ``model`` is a :class:`repro_torch.models.DecoderLM` and ``params`` its
     weights on ``device`` (default ``cuda``). ``kv_blocks`` sets the paged
     pool's allocatable block budget (default: full dense capacity,
-    ``max_slots * max_len / kv_block_size``).
+    ``max_slots * max_len / kv_block_size``). ``tracer`` records the
+    spans the module docstring lists.
     """
 
     def __init__(self, model, params, *, max_slots: int = 4,
                  max_len: int = 128, prompt_bucket: int = 16,
                  kv_layout: str = "dense", kv_block_size: int = 16,
                  kv_blocks: Optional[int] = None,
-                 kv_quant: Optional[str] = None, device=None):
+                 kv_quant: Optional[str] = None, device=None, tracer=None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}")
         if kv_quant not in (None, "int8"):
@@ -170,6 +179,7 @@ class ContinuousBatcher:
         if kv_quant is not None and kv_layout != "paged":
             raise ValueError("kv_quant requires kv_layout='paged'")
         self.device = resolve_device(device)
+        self.tracer = tracer
         self.model = model
         self.params = params
         self.max_slots = max_slots
@@ -238,6 +248,10 @@ class ContinuousBatcher:
                     f"request rid={req.rid} needs {need} pages; pool has "
                     f"{self.allocator.n_allocatable} total")
         self.queue.append(req)
+        tracer = self.tracer
+        if tracer is not None:
+            tracer.instant("batcher.submit", time.perf_counter(), args={
+                "rid": req.rid, "prompt_len": plen, "max_new": req.max_new})
 
     def _bucket_for(self, plen: int) -> int:
         b = self.bucket
@@ -265,29 +279,32 @@ class ContinuousBatcher:
 
     def _admit(self, slot: int, req: GenRequest):
         plen = len(req.prompt)
-        if self._bucketed:
-            bucket = self._bucket_for(plen)
+        bucket = self._bucket_for(plen) if self._bucketed else plen
+        paged = self.kv_layout == "paged"
+        tracer = self.tracer
+        with (tracer.span("batcher.admit", rid=req.rid, bucket=bucket,
+                          pages=self._pages_for(req) if paged else 0)
+              if tracer is not None else NO_SPAN):
             toks = np.zeros(bucket, np.int64)
             toks[:plen] = req.prompt
-        else:
-            bucket = plen
-            toks = np.asarray(req.prompt, np.int64)
-        logits, cache1 = self._prefill_fn(bucket)(
-            self.params, torch.as_tensor(toks, device=self.device)[None], plen)
-        if self.kv_layout == "paged":
-            self._scatter_paged(slot, req, cache1)
-        else:
-            # the whole slot row is overwritten, as the reference's .at[slot].set
-            for entry, one in zip(self.cache_slots, cache1):
-                for name in entry:
-                    entry[name][slot] = one[name][0]
-        tok = int(torch.argmax(logits[0]))
-        req.tokens.append(tok)
-        req.start_step = self.step_count
-        self.last_tok[slot, 0] = tok
-        self.pos[slot] = plen
-        self.remaining[slot] = req.max_new - 1
-        self.slots.place(slot, req)
+            logits, cache1 = self._prefill_fn(bucket)(
+                self.params, torch.as_tensor(toks, device=self.device)[None], plen)
+            if paged:
+                with (tracer.span("paging.scatter") if tracer is not None else NO_SPAN):
+                    self._scatter_paged(slot, req, cache1)
+            else:
+                # the whole slot row is overwritten, as the reference's .at[slot].set
+                for entry, one in zip(self.cache_slots, cache1):
+                    for name in entry:
+                        entry[name][slot] = one[name][0]
+            with (tracer.span("batcher.first_token") if tracer is not None else NO_SPAN):
+                tok = int(torch.argmax(logits[0]))
+            req.tokens.append(tok)
+            req.start_step = self.step_count
+            self.last_tok[slot, 0] = tok
+            self.pos[slot] = plen
+            self.remaining[slot] = req.max_new - 1
+            self.slots.place(slot, req)
 
     def _scatter_paged(self, slot: int, req: GenRequest, cache1):
         """Reserve the slot's pages and write the prefill cache into the
@@ -328,12 +345,22 @@ class ContinuousBatcher:
     def step(self) -> int:
         """Admit queued requests into free slots, then decode one token for
         every active slot. Returns the number of active slots."""
-        while self.queue and self.slots.n_free and self._can_admit_head():
-            self._admit(self.slots.free_slot(), self.queue.popleft())
-        n_active = self.slots.n_active
-        if n_active == 0:
+        tracer = self.tracer
+        with (tracer.span("batcher.step", step=self.step_count)
+              if tracer is not None else NO_SPAN):
+            n_admitted = 0
+            while self.queue and self.slots.n_free and self._can_admit_head():
+                self._admit(self.slots.free_slot(), self.queue.popleft())
+                n_admitted += 1
+            n_active = self.slots.n_active
+            if n_active:
+                self._decode(tracer)
             self.step_count += 1
-            return 0
+            if tracer is not None:
+                tracer.annotate(n_admitted=n_admitted, n_active=n_active)
+        return n_active
+
+    def _decode(self, tracer):
         pos_vec = torch.as_tensor(self.pos, device=self.device)
         if self.kv_layout == "paged":
             table = torch.as_tensor(self.allocator.table, device=self.device)
@@ -345,7 +372,8 @@ class ContinuousBatcher:
                 self.params, self.cache_slots, tokens=self.last_tok, pos=pos_vec,
                 route_rows=True)
         next_tok = torch.argmax(logits, dim=-1)
-        toks = next_tok.cpu().numpy()
+        with (tracer.span("batcher.sync") if tracer is not None else NO_SPAN):
+            toks = next_tok.cpu().numpy()
         for slot, req in self.slots.items():
             req.tokens.append(int(toks[slot]))
             self.pos[slot] += 1
@@ -356,8 +384,6 @@ class ContinuousBatcher:
                 if self.kv_layout == "paged":
                     self.allocator.free(slot)  # pages back to the pool
         self.last_tok = next_tok[:, None]
-        self.step_count += 1
-        return n_active
 
     def run(self, until_empty: bool = True, max_steps: int = 10_000):
         """Step until the queue and every slot have drained (or
@@ -375,7 +401,3 @@ class ContinuousBatcher:
         caches = self.pools if self.kv_layout == "paged" else self.cache_slots
         return sum(t.numel() * t.element_size()
                    for entry in caches for t in entry.values())
-
-    @property
-    def occupancy(self) -> float:
-        return self.slots.occupancy
