@@ -52,13 +52,17 @@ and ``model.decode_step`` (either layout) around the call, and inside each
 ``model.embed``, one ``model.layer`` a layer (``i``) holding its mixer
 (``model.attn`` or ``model.mamba``; an RWKV layer none) and its FFN
 (``model.mlp`` or ``model.moe``), and ``model.unembed``. The spans time
-the host: nothing inside them waits for the device.
+the host: nothing inside them waits for the device. A paged decode step
+that replays a CUDA graph (``decode_step_paged``) has only its
+``model.decode_step`` span, whose ``graph`` arg says how the step ran.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
+import weakref
 from typing import Optional
 
 import torch
@@ -67,6 +71,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.kernels import LAUNCHES
 from repro_torch.models import attention as A
 from repro_torch.models import mamba as M
 from repro_torch.models import mlp as F
@@ -79,6 +84,8 @@ from repro_torch.parallel import is_dtensor, logical, sharding_ctx, use_sharding
 from repro_torch.parallel.local import dense, local_call, mesh_ops, partial_where_split
 from repro_torch.tree import leaves
 
+
+GRAPHS_KEPT = 2  # decode graphs a model keeps: two batchers stepping in turn each keep theirs
 
 _DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
          torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
@@ -97,7 +104,10 @@ class DecoderLM:
         """``plain=True`` runs attention through the model-level plain
         PyTorch math and the WKV and selective scans through their plain
         versions, on any device (the yardstick for the kernel path).
-        ``tracer`` records the spans the module docstring lists."""
+        ``tracer`` records the spans the module docstring lists.
+        ``decode_graph_captures`` and ``decode_graph_replays`` count the
+        paged decode steps captured as a CUDA graph and the steps that
+        replayed one (``decode_step_paged``)."""
         unported = sorted(set(cfg.mixer_pattern) - {"attn", "rwkv", "mamba"})
         if unported:
             raise NotImplementedError(
@@ -109,6 +119,9 @@ class DecoderLM:
         self.cfg = cfg
         self.plain = plain
         self.tracer = tracer
+        self.decode_graph_captures = 0
+        self.decode_graph_replays = 0
+        self._decode_graphs = collections.OrderedDict()  # key -> _GraphSlot
         self.block_size, self.n_blocks, self.specs = block_structure(cfg)
         self.layer_specs = [self.specs[j] for _ in range(self.n_blocks)
                             for j in range(self.block_size)]
@@ -510,16 +523,149 @@ class DecoderLM:
     def decode_step_paged(self, params, pools, *, tokens, pos_vec, pages):
         """One slot-batched decode step against paged pools. tokens: (B,1);
         pos_vec: (B,) per-slot positions; pages: (B,P) int32 page table.
-        Pools update in place. Returns (logits (B,V), pools)."""
+        Pools update in place. Returns (logits (B,V), pools).
+
+        On the card the step is replayed as one CUDA graph, so that the
+        device does not wait on the host's launches of every layer: a call
+        on plain CUDA tensors runs eagerly the first time it meets its
+        params and pools, captures the step the second time, and from then
+        on copies ``tokens``, ``pos_vec`` and ``pages`` into the graph's
+        inputs and replays it (``_graph_slot`` says when). Replay does the
+        same work with the same kernels and records what the eager step
+        records: ``LAUNCHES`` grows by the captured launches, and
+        ``mlp.RECORD`` (when set) gets a copy of each MoE layer's routing.
+        The logits returned are a copy, which the next replay leaves
+        alone."""
+        slot = self._graph_slot(params, pools, tokens, pos_vec, pages)
+        mode = "eager" if slot is None else "capture" if slot.graph is None else "replay"
         tracer = self.tracer
-        with (tracer.span("model.decode_step") if tracer is not None else NO_SPAN), \
-                mesh_ops(tokens):
+        with (tracer.span("model.decode_step", graph=mode) if tracer is not None
+              else NO_SPAN):
+            if mode == "eager":
+                return self._decode_paged(params, pools, tokens, pos_vec, pages)
+            if slot.graph is None:
+                slot.graph = _DecodeGraph(self, params, pools, tokens, pos_vec, pages)
+                self.decode_graph_captures += 1
+            self.decode_graph_replays += 1
+            return slot.graph.replay(tokens, pos_vec, pages), pools
+
+    def _decode_paged(self, params, pools, tokens, pos_vec, pages):
+        """The paged decode step as eager launches (and as captured)."""
+        tracer = self.tracer
+        with mesh_ops(tokens):
             with (tracer.span("model.embed") if tracer is not None else NO_SPAN):
                 x = self._embed_in(params, tokens)
             x, pools = self._stack(params, x, "decode_paged", caches=pools,
                                    pos=pos_vec, pages=pages)
             with (tracer.span("model.unembed") if tracer is not None else NO_SPAN):
                 return self._unembed(params, x)[:, 0], pools
+
+    def _graph_slot(self, params, pools, tokens, pos_vec, pages):
+        """The ``_GraphSlot`` of a paged decode step met before on the same
+        tensors, to capture or replay; None where this call runs eagerly.
+
+        A captured step reads and writes its params and pools at fixed
+        addresses. The key holds the identity of every leaf of both trees
+        and the shapes of the copied inputs; a slot holds weak references
+        to the leaves and their pointers, so it matches only while those
+        very tensors live at those addresses, and keeps none of them
+        alive. Leaves are checked when first met: each a plain CUDA tensor
+        (not a DTensor) on ``tokens``' device, of a fixed shape, stride and
+        dtype. The model keeps the ``GRAPHS_KEPT`` slots used last.
+
+        Eager always: a plain model (the yardstick path), CPU or meta
+        tensors, DTensors, a sharding context, a dispatch mode (which
+        counts the eager ops: ``parallel.cost``), a stream capture already
+        open, and a leaf that autograd would record."""
+        if (self.plain or not tokens.is_cuda or sharding_ctx()[0] is not None
+                or torch._C._len_torch_dispatch_stack() > 0
+                or torch.cuda.is_current_stream_capturing()):
+            return None
+        device = tokens.get_device()
+        inputs = (tokens, pos_vec, pages)
+        if not _on_device(inputs, device):
+            return None
+        ts = leaves((params, pools))
+        if torch.is_grad_enabled() and any(getattr(t, "requires_grad", False) for t in ts):
+            return None
+        key = (device, *((t.shape, t.stride(), t.dtype) for t in inputs),
+               tuple(map(id, ts)))
+        slot = self._decode_graphs.get(key)
+        if slot is None or not slot.holds(ts):
+            if not _on_device(ts, device):
+                return None
+            self._decode_graphs[key] = _GraphSlot(ts)
+            slot = None
+        self._decode_graphs.move_to_end(key)
+        while len(self._decode_graphs) > GRAPHS_KEPT:
+            self._decode_graphs.popitem(last=False)
+        return slot
+
+
+def _on_device(ts, device: int) -> bool:
+    """Whether each of ``ts`` is a plain tensor (not a DTensor) on CUDA
+    device ``device``."""
+    return all(isinstance(t, torch.Tensor) and not is_dtensor(t)
+               and t.get_device() == device for t in ts)
+
+
+class _GraphSlot:
+    """The tensors a decode graph is keyed to (weak references and their
+    pointers) and the graph, once captured."""
+
+    __slots__ = ("refs", "ptrs", "graph")
+
+    def __init__(self, ts):
+        self.refs = [weakref.ref(t) for t in ts]
+        self.ptrs = tuple(map(torch.Tensor.data_ptr, ts))
+        self.graph = None
+
+    def holds(self, ts) -> bool:
+        """Whether ``ts`` are the very tensors met, at the same pointers."""
+        return (all(r() is t for r, t in zip(self.refs, ts))
+                and tuple(map(torch.Tensor.data_ptr, ts)) == self.ptrs)
+
+
+class _DecodeGraph:
+    """One paged decode step captured as a CUDA graph: the static inputs it
+    reads, the logits it writes, and what the captured Python recorded
+    once, so that each replay records it again. The capture runs on a side
+    stream (CUDA captures no work of the legacy default stream), which is
+    the current stream that the hand-written kernels launch on; their
+    scratch, like every tensor the step makes, comes from the graph's
+    private memory pool."""
+
+    def __init__(self, model: DecoderLM, params, pools, tokens, pos_vec, pages):
+        self.tokens, self.pos_vec, self.pages = tokens.clone(), pos_vec.clone(), pages.clone()
+        launched = dict(LAUNCHES)
+        kept, F.RECORD = F.RECORD, []
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.logits, _ = model._decode_paged(params, pools, self.tokens,
+                                                     self.pos_vec, self.pages)
+            # each MoE layer's (idx, probs, keep): static outputs of the graph
+            self.routes = F.RECORD
+        finally:
+            F.RECORD = kept
+            # the capture launched nothing: its counts are what a replay adds
+            self.launches = {k: n - launched[k] for k, n in LAUNCHES.items()
+                             if n != launched[k]}
+            LAUNCHES.update(launched)
+
+    def replay(self, tokens, pos_vec, pages):
+        """Run the step on these inputs; returns a copy of its logits."""
+        with torch.inference_mode():  # the static inputs may be inference tensors
+            self.tokens.copy_(tokens)
+            self.pos_vec.copy_(pos_vec)
+            self.pages.copy_(pages)
+        self.graph.replay()
+        for name, n in self.launches.items():
+            LAUNCHES[name] += n
+        if F.RECORD is not None:
+            F.RECORD.extend(tuple(None if t is None else t.clone() for t in entry)
+                            for entry in self.routes)
+        return self.logits.clone()
 
 
 def _ce_sums(logits, labels, mask):

@@ -26,7 +26,22 @@ def leaves_with_paths(tree, path: Path = ()) -> Iterator[Tuple[Path, Any]]:
 
 
 def leaves(tree) -> List[Any]:
-    return [leaf for _, leaf in leaves_with_paths(tree)]
+    """The leaves in ``leaves_with_paths`` order, without building paths
+    (a paged decode step walks its params and pools with it every call)."""
+    out: List[Any] = []
+    _collect(tree, out)
+    return out
+
+
+def _collect(tree, out: List[Any]) -> None:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _collect(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _collect(v, out)
+    else:
+        out.append(tree)
 
 
 def key(path: Path) -> str:
