@@ -1,6 +1,9 @@
 """Fixtures of the benchmark's CPU tests: a tiny dense and a tiny MoE
 configuration at the benchmark's layout, served by the program's plain
-path on the CPU, and traffic sized to run in about a second."""
+path on the CPU, and traffic sized to run in about a second. A tiny run
+serves on past its window's close until every request it submitted has
+finished (for at most ``DRAIN_S`` more seconds), so that a loaded host
+still leaves the check finished requests to judge."""
 
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ OPEN = {"loop": "open", "cycle_s": 0.5, "phases": [[0, 0.4, 0.75], [0.4, 0.5, 2.
 CLOSED = dict(OPEN, loop="closed", clients=4, think_s=0.0, requests=200, block=8,
               output_tokens=[4, 12])
 LIMITS = {"logit_gap": 0.05, "routed_off_tie": 0, "keep_mismatch": 0}
+DRAIN_S = 120.0
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +69,7 @@ def tiny(few_threads):
         limits = {k: v for k, v in LIMITS.items()
                   if config is MOE or k == "logit_gap"}
         result = harness.run_cell("tiny", seed, seconds, trace, device="cpu", spec=spec,
-                                  inputs=(cell, config, traffic, limits))
+                                  inputs=(cell, config, traffic, limits), drain_s=DRAIN_S)
         return result, result.pop("_run")
 
     return run

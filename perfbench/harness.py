@@ -12,7 +12,23 @@ A traced run (``trace=True``) hands the batcher a thin stand-in for the
 model that synchronises around each prefill and decode step and times it,
 labels the host's work with profiler ranges, and profiles a fixed slice at
 the end of the window (``trace_slice_s``), retaken one cycle later when
-the profiler dropped kernel records.
+the profiler dropped kernel records. It also hands the program's model and
+batcher one ``repro_torch.obs.trace.Tracer`` (``Run.tracer``; None in an
+untraced run), whose host-clock spans a reader maps onto the slice's
+profiler clock by the slice's ``offset_us``.
+
+Each configuration is judged by the reference that its file's
+``"reference"`` key names, a path from the repo root
+(``perfbench/reference/decoder.py`` where the key is absent). The file
+defines ``Ref(m, params, quant=None)``: ``m`` the configuration's
+``"model"`` sizes, ``params`` the weights the benchmark made, ``quant``
+None or ``"fp8"`` (the control). ``Ref.forward(tokens, n_prompt, routes)``
+runs one request teacher-forced and returns ``{"logits": ...}`` (f32, one
+row a served token), with ``routed_off_tie``, ``route_gap_max`` and
+``keep_mismatch`` where the stack has experts; ``routes[j]`` is the routing
+the program recorded in the j-th MoE layer of the stack, in layer order
+(None in a stack without experts). A file that is missing or defines no
+``Ref`` stops the run before it builds anything.
 """
 
 from __future__ import annotations
@@ -35,12 +51,14 @@ import torch
 from perfbench import traffic as TR
 from perfbench import weights
 from perfbench import yardstick as Y
-from perfbench.reference.decoder import Ref, capacity
+from perfbench.reference.decoder import capacity
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 SLICE_TRIES = 3
+ANCHORS = 8  # anchor ranges a slice brackets, to map the host clock onto the profiler's
+DEFAULT_REFERENCE = "perfbench/reference/decoder.py"
 
 
 def load_cell(workload: str, spec: Optional[dict] = None):
@@ -51,6 +69,25 @@ def load_cell(workload: str, spec: Optional[dict] = None):
     config = json.loads((ROOT / entry["file"]).read_text())
     limits = json.loads((HERE / "limits" / f"{workload}.json").read_text())
     return cell, config, TR.load(cell["traffic"]), limits
+
+
+def load_reference(config: dict):
+    """The ``Ref`` class of the file the configuration's ``"reference"``
+    names (from the repo root; ``DEFAULT_REFERENCE`` without the key)."""
+    rel = config.get("reference", DEFAULT_REFERENCE)
+    path = (ROOT / rel).resolve()
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {config.get('name')!r}: its reference "
+                                f"{rel!r} is missing")
+    name = "perfbench_reference_" + "".join(c if c.isalnum() else "_" for c in rel)
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    if not isinstance(getattr(mod, "Ref", None), type):
+        raise ImportError(f"configuration {config.get('name')!r}: its reference {rel!r} "
+                          f"defines no class Ref")
+    return mod.Ref
 
 
 def model_config(config: dict):
@@ -118,9 +155,15 @@ class Timed:
 class Run:
     """Everything one run needs and records."""
 
-    def __init__(self, cell, config, t, seed: int, seconds: float, trace: bool, device):
+    def __init__(self, cell, config, t, seed: int, seconds: float, trace: bool, device,
+                 drain_s: Optional[float] = None):
         self.cell, self.config, self.t = cell, config, t
         self.m = config["model"]
+        self.Ref = load_reference(config)
+        # past the close, serve on until every request submitted finishes, for
+        # at most this many seconds (None: the loop ends at the close)
+        self.drain_s = drain_s
+        self.tracer = None  # the program's Tracer, in a traced run
         self.seed, self.seconds, self.trace = int(seed), float(seconds), trace
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
@@ -171,7 +214,13 @@ class Run:
             kv_layout="paged",
             kv_block_size=t["kv_block_size"], device=self.device)
         if self.trace:
+            from repro_torch.obs.trace import Tracer
+
             model.batcher = self.batcher
+            # attributes, read by the program where it has spans, ignored where not
+            self.tracer = Tracer()
+            self.model.tracer = self.tracer
+            self.batcher.tracer = self.tracer
         self.timed = model if self.trace else None
         if self.moe:
             mlp.RECORD = []
@@ -200,6 +249,7 @@ class Run:
         if self.trace:
             self.timed.prefills.clear()
             self.timed.decodes.clear()
+            self.tracer.events.clear()
             if self.cuda:  # the profiler's first start is slow: not in the window
                 from torch.profiler import ProfilerActivity, profile
 
@@ -253,10 +303,13 @@ class Run:
         while True:
             now = self.clock()
             self._slice_edge(now)
-            if now >= self.end_s:
+            if now >= self.end_s and (
+                    self.drain_s is None or now >= self.end_s + self.drain_s
+                    or not (b.queue or b.slots.n_active
+                            or (not closed and nxt < len(self.plan)))):
                 break
             if closed:
-                while due_heap and due_heap[0][0] <= now:
+                while now < self.end_s and due_heap and due_heap[0][0] <= now:
                     due, c = heapq.heappop(due_heap)
                     if by_client[c]:
                         submit(by_client[c].pop(), due)
@@ -341,13 +394,20 @@ class Run:
             edges = self._slice_edges()
             if len(self.slices) >= len(edges) or now < edges[len(self.slices)][0]:
                 return
+            if now >= edges[len(self.slices)][1]:
+                # reading the last slice outlasted this one's range: no retake (a
+                # profile started now would still be open when the loop ends)
+                self._done = True
+                self.end_s = max(self.seconds, now)
+                return
             self.sync()
             self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             self._prof.__enter__()
             self._rf = record_function("bench.slice")
             self._rf.__enter__()
+            anchors = anchor_ranges()
             self._slice_end = edges[len(self.slices)][1]
-            self._slice = {"t0": self.clock(), "launches": dict(LAUNCHES)}
+            self._slice = {"t0": self.clock(), "launches": dict(LAUNCHES), "anchors": anchors}
         elif now >= self._slice_end:
             self.sync()
             self._rf.__exit__(None, None, None)
@@ -363,33 +423,19 @@ class Run:
                 self.end_s = max(self.seconds, self.clock())
 
     def _read_slice(self, prof, sl: dict) -> dict:
-        from torch.autograd import DeviceType
-
-        events = prof.events()
-        span = next(e for e in events if e.name == "bench.slice")
-        lo, hi = span.time_range.start, span.time_range.end
-        # the device side of the benchmark's own ranges is an annotation, no work
-        kernels = [(e.time_range.start, e.time_range.end, e.name) for e in events
-                   if e.device_type == DeviceType.CUDA and not e.name.startswith("bench.")]
-        host = [(e.time_range.start, e.time_range.end, e.name) for e in events
-                if e.device_type == DeviceType.CPU and e.name.startswith("bench.")
-                and e.name != "bench.slice"]
-        busy = Y.union_seconds([(s, e) for s, e, _ in kernels], lo, hi) / 1e6
-        flash = [(s, e) for s, e, n in kernels if "flash" in n]
-        dec = [(s, e) for s, e, n in kernels if "decode_kernel" in n]
-        issued_flash = sl["launches"].get("flash_attention", 0)
-        issued_dec = sl["launches"].get("paged_decode_attention", 0)
-        sl.update(
-            window_s=(hi - lo) / 1e6, busy_s=busy,
-            flash_s=sum(e - s for s, e in flash) / 1e6, flash_recorded=len(flash),
-            flash_issued=issued_flash,
-            decode_s=sum(e - s for s, e in dec) / 1e6, decode_recorded=len(dec),
-            decode_issued=2 * issued_dec,
-            complete=len(flash) == issued_flash and len(dec) == 2 * issued_dec,
-            device_ops=_top_ops(prof), idle_gaps=_idle_gaps(kernels, host, lo, hi))
-        self.note(f"trace slice {len(self.slices) + 1}: B2 {len(flash)}/{issued_flash} "
-                  f"B1 kernels {len(dec)}/{2 * issued_dec} recorded, "
-                  f"busy {busy:.4f} of {(hi - lo) / 1e6:.4f} s")
+        t0 = time.perf_counter()
+        sl = read_slice(prof.events(), sl)
+        sl["device_ops"] = _top_ops(prof)
+        self.note(f"trace slice {len(self.slices) + 1} (read in {time.perf_counter() - t0:.1f} s)"
+                  f": B2 {sl['flash_recorded']}/"
+                  f"{sl['flash_issued']} B1 kernels {sl['decode_recorded']}/"
+                  f"{sl['decode_issued']} recorded, busy {sl['busy_s']:.4f} of "
+                  f"{sl['window_s']:.4f} s, host clock mapped within "
+                  f"{sl['offset_bracket_us']:.1f} us; kernels' B2 entries "
+                  f"{_named(sl['kernels'], 'flash')}, B1's {_named(sl['kernels'], 'decode_kernel')}"
+                  f" (records, s); {len(sl['kernels'])} kernel names, "
+                  f"{sum(1 for a, b in sl['device_intervals'] if a < sl['lo'] or b > sl['hi'])}"
+                  f" device intervals outside the slice's range")
         return sl
 
     # ------------------------------------------------------------- results
@@ -410,6 +456,74 @@ class Run:
         return {"ttft_p95_ms": 1e3 * Y.percentile(ttft, 95),
                 "itl_p95_ms": 1e3 * Y.percentile(gaps, 95),
                 "tokens_per_s": tokens / T}
+
+
+def anchor_ranges() -> List[tuple]:
+    """Enter and leave ``ANCHORS`` empty profiler ranges named
+    ``bench.anchor``; the host clock (``perf_counter``) just before and
+    just after each, which ``read_slice`` maps onto the profiler's clock."""
+    from torch.profiler import record_function
+
+    out = []
+    for _ in range(ANCHORS):
+        a0 = time.perf_counter()
+        with record_function("bench.anchor"):
+            pass
+        out.append((a0, time.perf_counter()))
+    return out
+
+
+def read_slice(events, sl: dict) -> dict:
+    """The slice's numbers from the profiler's events (``prof.events()``):
+    the ``bench.slice`` range's edges ``lo``, ``hi`` (profiler us), every
+    device interval (``device_intervals``, sorted) and, by kernel name, its
+    records and device seconds (``kernels``: name -> [count, seconds]),
+    B1's and B2's among them, the idle time by host range, and
+    ``offset_us``, the profiler's clock less the host's ``perf_counter``
+    (in us), from the anchor range whose host bracket was narrowest."""
+    from torch.autograd import DeviceType
+
+    span = next(e for e in events if e.name == "bench.slice")
+    lo, hi = span.time_range.start, span.time_range.end
+    # the device side of the benchmark's own ranges is an annotation, no work
+    kernels = [(e.time_range.start, e.time_range.end, e.name) for e in events
+               if e.device_type == DeviceType.CUDA and not e.name.startswith("bench.")]
+    host = [(e.time_range.start, e.time_range.end, e.name) for e in events
+            if e.device_type == DeviceType.CPU and e.name.startswith("bench.")
+            and e.name not in ("bench.slice", "bench.anchor")]
+    anchors = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CPU and e.name == "bench.anchor")
+    width, offset = math.inf, None  # no mapping unless every anchor was recorded
+    if len(anchors) == len(sl["anchors"]):
+        width, offset = min((a1 - a0, (s + e) / 2 - 1e6 * (a0 + a1) / 2)
+                            for (a0, a1), (s, e) in zip(sl["anchors"], anchors))
+    by_name: Dict[str, list] = {}
+    for s, e, n in kernels:
+        k = by_name.setdefault(n, [0, 0.0])
+        k[0] += 1
+        k[1] += (e - s) / 1e6
+    busy = Y.union_seconds([(s, e) for s, e, _ in kernels], lo, hi) / 1e6
+    flash = [(s, e) for s, e, n in kernels if "flash" in n]
+    dec = [(s, e) for s, e, n in kernels if "decode_kernel" in n]
+    issued_flash = sl["launches"].get("flash_attention", 0)
+    issued_dec = sl["launches"].get("paged_decode_attention", 0)
+    return dict(
+        sl, lo=lo, hi=hi, offset_us=offset, offset_bracket_us=1e6 * width,
+        device_intervals=sorted((s, e) for s, e, _ in kernels), kernels=by_name,
+        window_s=(hi - lo) / 1e6, busy_s=busy,
+        flash_s=sum(e - s for s, e in flash) / 1e6, flash_recorded=len(flash),
+        flash_issued=issued_flash,
+        decode_s=sum(e - s for s, e in dec) / 1e6, decode_recorded=len(dec),
+        decode_issued=2 * issued_dec,
+        complete=len(flash) == issued_flash and len(dec) == 2 * issued_dec,
+        idle_gaps=_idle_gaps(kernels, host, lo, hi))
+
+
+def _named(kernels: Dict[str, list], part: str) -> tuple:
+    """(records, device seconds) of the slice's kernels whose name holds
+    ``part``."""
+    rows = [v for k, v in kernels.items() if part in k]
+    return sum(c for c, _ in rows), sum(t for _, t in rows)
 
 
 def _top_ops(prof, n: int = 10) -> List[list]:
@@ -526,8 +640,8 @@ def judge(run: Run, quant: Optional[str] = None) -> Dict[str, float]:
     chosen = sample(run)
     if not chosen:
         return {"requests_checked": 0.0}
-    ref = Ref(run.m, run.params)
-    ctl = Ref(run.m, run.params, quant=quant) if quant else None
+    ref = run.Ref(run.m, run.params)
+    ctl = run.Ref(run.m, run.params, quant=quant) if quant else None
     out = {"logit_gap": 0.0}
     if run.moe:
         out.update(routed_off_tie=0.0, keep_mismatch=0.0, route_gap_max=0.0)
@@ -596,12 +710,12 @@ def loaded_forbidden() -> List[str]:
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
              device="cuda", t_start: Optional[float] = None, spec: Optional[dict] = None,
-             inputs=None) -> dict:
+             inputs=None, drain_s: Optional[float] = None) -> dict:
     """One run; returns the result line's object (``checks`` last)."""
     t_start = time.perf_counter() if t_start is None else t_start
     spec = spec or json.loads((ROOT / "BENCHMARK.json").read_text())
     cell, config, t, limits = inputs or load_cell(workload, spec)
-    run = Run(cell, config, t, seed, seconds, trace, device)
+    run = Run(cell, config, t, seed, seconds, trace, device, drain_s=drain_s)
     with torch.inference_mode():
         t0 = time.perf_counter()
         run.build()
@@ -619,6 +733,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     attempted, failed = len(counted), sum(s.failed for s in counted)
     if trace:
         metrics = read_per_layer(run, spec)
+        steps = [t1 - t0 for t0, t1, _ in run.timed.decodes if 0.0 <= t0 < run.seconds]
+        if steps:
+            run.note(f"synchronised decode step: mean {1e3 * sum(steps) / len(steps):.3f} ms "
+                     f"over {len(steps)} steps of the window")
     else:
         e2e = dict(run.end_to_end(), setup_s=setup_s)
         metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}

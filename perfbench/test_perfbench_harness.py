@@ -27,17 +27,25 @@ def test_same_seed_same_traffic():
     pa, pb = TR.prompts(a, 49152, 2**33 + 7), TR.prompts(b, 49152, 2**33 + 7)
     assert all((x == y).all() for x, y in zip(pa, pb))
     c = TR.plan(t, 5, 40)
-    # another seed: the same arrivals, and in each phase the same lengths in
-    # another order
-    assert [r.due for r in c] == [r.due for r in a]
-    assert [r.prompt_len for r in c] != [r.prompt_len for r in a]
+    # another seed: the same arrivals and lengths in the same order, other
+    # token ids; each phase holds its count's quantiles of each length
+    # distribution once
+    assert [(r.due, r.prompt_len, r.max_new) for r in c] == \
+        [(r.due, r.prompt_len, r.max_new) for r in a]
+    pc = TR.prompts(c, 49152, 5)
+    assert all(len(x) == len(y) and (x != y).any() for x, y in zip(pa, pc))
     for k in range(4):
         for p0, p1 in ((0, 8), (8, 10)):
-            def phase(reqs):
-                return [(r.prompt_len, r.max_new) for r in reqs
-                        if 10 * k + p0 <= r.due < 10 * k + p1]
-            assert Counter(x for x, _ in phase(a)) == Counter(x for x, _ in phase(c))
-            assert Counter(y for _, y in phase(a)) == Counter(y for _, y in phase(c))
+            phase = [(r.prompt_len, r.max_new) for r in a
+                     if 10 * k + p0 <= r.due < 10 * k + p1]
+            n = len(phase)
+            assert n == round(t["rate_rps"] * (0.75 if p0 == 0 else 2.0) * (p1 - p0))
+            assert Counter(x for x, _ in phase) == Counter(
+                TR.quantiles(*t["prompt_tokens"], t["prompt_dist"], n).tolist())
+            assert Counter(y for _, y in phase) == Counter(
+                TR.quantiles(*t["output_tokens"], t["output_dist"], n).tolist())
+    # a phase's order is one draw, not the quantiles in sorted order
+    assert [r.prompt_len for r in a] != sorted(r.prompt_len for r in a)
     lo, hi = t["prompt_tokens"]
     assert all(lo <= r.prompt_len <= hi and 8 <= r.max_new <= 24 for r in a)
 
@@ -72,10 +80,14 @@ def test_closed_loop_plan():
     t = TR.load("chat-closed")
     reqs = TR.plan(t, 3, 40)
     assert len(reqs) == t["requests"] and {r.client for r in reqs} == set(range(32))
-    other = TR.plan(t, 4, 40)
-    for i in range(0, 256, 64):  # each block of 64: the same lengths in another order
-        assert Counter(r.max_new for r in reqs[i:i + 64]) == \
-            Counter(r.max_new for r in other[i:i + 64])
+    other = TR.plan(t, 4, 40)  # another seed: the same schedule
+    assert [(r.prompt_len, r.max_new, r.client) for r in other] == \
+        [(r.prompt_len, r.max_new, r.client) for r in reqs]
+    for i in range(0, 256, 64):  # each block of 64: its quantiles once each
+        assert Counter(r.max_new for r in reqs[i:i + 64]) == Counter(
+            TR.quantiles(*t["output_tokens"], t["output_dist"], 64).tolist())
+        assert Counter(r.prompt_len for r in reqs[i:i + 64]) == Counter(
+            TR.quantiles(*t["prompt_tokens"], t["prompt_dist"], 64).tolist())
     starts = [TR.closed_start(t, c) for c in range(32)]
     assert starts[0] == -t["lead_in_s"] and all(s < 0 for s in starts)
     assert TR.bucket_for(128, t) == 128 and TR.bucket_for(129, t) == 256
@@ -130,8 +142,10 @@ def test_result_line_and_reference_dense(tiny):
 def test_traced_moe_closed(tiny):
     result, run = tiny(MOE, CLOSED, trace=True)
     assert list(result) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
-    # the device's metrics are left out on the CPU; the batcher's are read
-    assert set(result["metrics"]) == {"queue_wait_ms", "slot_occupancy"}
+    # the device's metrics are left out on the CPU; the batcher's, and the
+    # program's spans, are read
+    assert set(result["metrics"]) == {"queue_wait_ms", "slot_occupancy", "admit_wait_ms",
+                                      "first_token_hold_ms", "decode_issue_ms"}
     assert 0 < result["metrics"]["slot_occupancy"]["value"] <= 100
     assert result["correct"], result["checks"]
     assert result["checks"]["keep_mismatch"]["value"] == 0
@@ -167,6 +181,8 @@ def test_benchmark_json_contract():
     assert names == {"ttft_p95_ms", "itl_p95_ms", "tokens_per_s", "setup_s"}
     for c in spec["configs"]:
         assert (ROOT / c["file"]).exists()
+        ref = json.loads((ROOT / c["file"]).read_text())["reference"]
+        assert (ROOT / ref).is_file() and (ROOT / ref).parent == ROOT / "perfbench" / "reference"
     for w in spec["workloads"]:
         assert (ROOT / "perfbench" / "traffic" / f"{w['traffic']}.json").exists()
         assert (ROOT / "perfbench" / "limits" / f"{w['name']}.json").exists()

@@ -4,6 +4,7 @@ JAX package's), the reference imports nothing of the program, and no
 source reads the JAX package's benchmark folder."""
 
 import ast
+import json
 import pathlib
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -33,7 +34,13 @@ def test_no_jax_anywhere():
 
 
 def test_reference_is_independent_of_the_program():
-    for f in sorted((HERE / "reference").rglob("*.py")):
+    """Every file under ``reference/`` and every file a configuration
+    names as its reference."""
+    spec = json.loads((HERE.parent / "BENCHMARK.json").read_text())
+    named = {(HERE.parent / json.loads((HERE.parent / c["file"]).read_text())["reference"])
+             .resolve() for c in spec["configs"]}
+    assert named
+    for f in sorted(set((HERE / "reference").rglob("*.py")) | named):
         names = set(_imports(f))
         assert names <= {"__future__", "math", "typing", "torch"}, (f, names)
 

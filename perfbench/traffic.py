@@ -1,25 +1,30 @@
 """The one traffic generator: it reads a mix's parameters from
-``traffic/<name>.json`` and makes the run's requests from ``--seed``.
+``traffic/<name>.json`` and makes the run's requests, their token ids
+from ``--seed``.
 
-Every seed gets the same work in another order, so that runs with
-different seeds differ no more than two runs of one seed:
+A cell's requests follow one schedule of arrivals and lengths, whatever
+the seed, so that runs with different seeds differ no more than two runs
+of one seed; the seed draws the token ids (and the weights, and the
+requests checked). A tail of first-token times is set by the few requests
+that wait longest, and which lengths come just before them moves it: an
+order of the same lengths drawn from the seed spread it far more than the
+host's noise does.
 
 * open loop: arrivals are one realisation of a Poisson process whose rate
   follows a fixed cycle of phases (``[start_s, end_s, multiple of
   rate_rps]``), conditioned on its counts: each phase of each cycle holds
   ``rate * multiple * length`` arrivals, placed uniformly at random inside
-  it by a stream that depends on the mix and not on the seed. Cycles are
-  aligned to the window's start, so every window holds the same bursts.
-  Each phase's requests take that many quantiles of each length
-  distribution, once each, in an order drawn from the seed (prompt and
-  output lengths apart);
+  it. Cycles are aligned to the window's start, so every window holds the
+  same bursts. Each phase's requests take that many quantiles of each
+  length distribution, once each, in one order drawn for the mix (prompt
+  and output lengths apart);
 * steady Poisson (``"loop": "poisson"``, what ``sweep.py`` offers): arrivals
   of a Poisson process at ``rate_rps``, drawn from the seed, with the
   lengths as one phase of the open loop;
 * closed loop: ``clients`` clients each send their next request as soon as
   the last one finished (``think_s`` 0), starting staggered over the
   lead-in; each block of ``block`` consecutive requests holds the block's
-  quantiles of each length distribution in an order drawn from the seed;
+  quantiles of each length distribution in one order drawn for the mix;
 * token ids are uniform over the vocabulary, drawn from the seed.
 
 Requests due before 0 s belong to the lead-in: they are served, and not
@@ -39,6 +44,7 @@ HERE = pathlib.Path(__file__).resolve().parent
 
 PROMPTS, OUTPUTS, TOKENS = 2, 3, 4  # independent streams of a seed
 ARRIVALS = 0  # the open loop's arrival times: one stream, whatever the seed
+SCHEDULE = 0  # the seed of a cell's schedule (arrivals, length orders), whatever the run's
 PROMPT_BUCKET = 16  # the batcher's default first prefill bucket, left in force
 
 
@@ -86,7 +92,7 @@ def lengths(t: dict, sizes, seed: int):
 def open_arrivals(t: dict, start: float, end: float) -> list:
     """Sorted arrival times in [start, end) of the mix's cycle of phases,
     one array a phase."""
-    rng = _rng(0, ARRIVALS)
+    rng = _rng(SCHEDULE, ARRIVALS)
     cycle = float(t["cycle_s"])
     times = []
     k = int(np.floor(start / cycle))
@@ -110,7 +116,7 @@ def plan(t: dict, seed: int, seconds: float, extra_s: float = 0.0) -> List[Plann
     if t["loop"] == "open":
         phases = open_arrivals(t, -lead, seconds + extra_s)
         due = np.concatenate(phases)
-        plens, outs = lengths(t, [len(p) for p in phases], seed)
+        plens, outs = lengths(t, [len(p) for p in phases], SCHEDULE)
     elif t["loop"] == "poisson":
         rate, span = float(t["rate_rps"]), lead + seconds + extra_s
         gaps = _rng(seed, ARRIVALS).exponential(1.0 / rate, size=int(10 + 2 * rate * span))
@@ -120,7 +126,7 @@ def plan(t: dict, seed: int, seconds: float, extra_s: float = 0.0) -> List[Plann
     elif t["loop"] == "closed":
         n, block = int(t["requests"]), int(t["block"])
         due = None
-        plens, outs = lengths(t, [block] * -(-n // block), seed)
+        plens, outs = lengths(t, [block] * -(-n // block), SCHEDULE)
     else:
         raise ValueError(f"loop {t['loop']!r}")
     reqs = []

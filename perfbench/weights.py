@@ -7,13 +7,25 @@ leaf, a view of it, scaled in place to the size of the program's init
 (products 1/sqrt(fan in), the embedding 1/sqrt(d)). Norm scales are drawn
 around 1 and biases around 0, so that no term of the reference is
 trivially equal to its neighbour's.
+
+A Mamba mixer's own leaves are drawn in its published init's ranges, so
+that the state carries weight from token to token: ``A_log`` about
+log(1..d_state) a channel (S4D-real, N(0, 0.1) about it), ``D`` about 1,
+``dt_bias`` the inverse softplus of a dt log-uniform in [1e-3, 1e-1] (the
+uniform taken from the normal drawn, through its CDF), and the inner norms
+``dt_norm``, ``b_norm``, ``c_norm`` as scales. No draw is added or moved:
+a tree without these leaves gets the same numbers as before them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Tuple
 
 import torch
+
+NORM_SCALES = ("scale", "dt_norm", "b_norm", "c_norm")
+DT_RANGE = (1e-3, 1e-1)  # Mamba's dt init, log-uniform
 
 CHUNK = 1 << 28  # elements a generator call
 ALIGN = 128  # elements: every leaf starts on a 256-byte boundary in bf16
@@ -54,8 +66,16 @@ def make(shape_tree, seed: int, device) -> dict:
         for (path, t), off in zip(group, offsets):
             leaf = buf[off:off + t.numel()].view(t.shape)
             name = path[-1]
-            if name == "scale":
+            if name in NORM_SCALES or name == "D":
                 leaf.mul_(0.1).add_(1.0)
+            elif name == "A_log":  # (d_inner, d_state)
+                n = t.shape[-1]
+                leaf.mul_(0.1).add_(torch.log(torch.arange(
+                    1, n + 1, dtype=leaf.dtype, device=leaf.device)))
+            elif name == "dt_bias":
+                lo, hi = math.log(DT_RANGE[0]), math.log(DT_RANGE[1])
+                dt = torch.exp(lo + (hi - lo) * torch.special.ndtr(leaf.float()))
+                leaf.copy_(torch.log(torch.expm1(dt)))
             elif t.dim() == 1:  # norm and projection biases
                 leaf.mul_(0.02)
             elif name == "embed":

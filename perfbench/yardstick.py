@@ -1,6 +1,7 @@
 """The benchmark's frozen yardstick: the H100's published peaks, the bounds
 of the two attention kernels the served path launches, the model FLOPs of a
-prefill and of a decode step, and the statistics of a run.
+prefill and of a decode step, the statistics of a run, and the lengths of
+unions of intervals (a trace's device time).
 
 Everything here counts only what the traffic needs: the true prompt length
 (not the padded bucket) and the keys each active slot can see (not every
@@ -13,6 +14,7 @@ Peaks: NVIDIA's H100 SXM data sheet, dense rates without sparsity, at the
 
 from __future__ import annotations
 
+import bisect
 import math
 import statistics
 from typing import Iterable, List, Optional, Sequence
@@ -158,4 +160,29 @@ def union_seconds(intervals: List[tuple], lo: Optional[float] = None,
             cur_e = max(cur_e, e)
     if cur_e is not None:
         total += cur_e - cur_s
+    return total
+
+
+def merged(intervals: List[tuple]) -> List[List[float]]:
+    """The union of (start, end) intervals as disjoint [start, end] pairs,
+    in order."""
+    out: List[List[float]] = []
+    for s, e in sorted(intervals):
+        if e <= s:
+            continue
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def covered(union: List[List[float]], lo: float, hi: float) -> float:
+    """Length of [lo, hi] that the disjoint, ordered pairs ``union``
+    (``merged``'s) cover."""
+    total = 0.0
+    i = max(0, bisect.bisect_right(union, [lo, math.inf]) - 1)
+    while i < len(union) and union[i][0] < hi:
+        total += max(0.0, min(hi, union[i][1]) - max(lo, union[i][0]))
+        i += 1
     return total
